@@ -97,7 +97,8 @@ __global__ void pack_page_kernel(const long long* __restrict__ leaves,
 }
 
 // grid: (blocks, leaves, pages).  Each block strides over one leaf of one
-// page; pages hold distinct slots, so no two blocks write the same byte.
+// page; pages hold distinct slots (the wrapper keeps only the last page of
+// a slot that repeats), so no two blocks write the same byte.
 __global__ void install_pages_kernel(const long long* __restrict__ leaves,
                                      const long long* __restrict__ pages) {
   const long long* L = leaves + 6 * blockIdx.y;

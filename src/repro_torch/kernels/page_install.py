@@ -179,14 +179,22 @@ def _normalize_pages(layout: PageLayout, pages) -> List[Tuple[torch.Tensor,
 
 
 def _check_slots(layout: PageLayout, slots, G: int) -> List[int]:
+    """Slots as ints, one per page, each in ``[0, batch)``.  A slot may
+    repeat: pages install in order, so the last page for a slot wins, as
+    in the reference."""
     slots = [int(s) for s in slots]
     if len(slots) != G:
         raise ValueError(f"{len(slots)} slots != {G} pages")
-    if len(set(slots)) != G or not all(0 <= s < layout.batch
-                                       for s in slots):
-        raise ValueError(f"slots {slots} must be distinct and in "
-                         f"[0, {layout.batch})")
+    if not all(0 <= s < layout.batch for s in slots):
+        raise ValueError(f"slots {slots} must lie in [0, {layout.batch})")
     return slots
+
+
+def _last_per_slot(slots: Sequence[int]) -> List[int]:
+    """Indices of the pages that survive an in-order install: the last
+    page for each slot, in page order."""
+    last = {s: g for g, s in enumerate(slots)}
+    return sorted(last.values())
 
 
 def _segment(buf: torch.Tensor, row: int, sp: LeafSpec) -> torch.Tensor:
@@ -298,7 +306,8 @@ def install_pages_torch(layout: PageLayout, batch_leaves, pages, slots,
                         only: Optional[Sequence[int]] = None):
     """Plain PyTorch install, per page and leaf: slice the page, view it
     as the leaf's dtype, then ``index_copy_`` at the slot (or ``max`` for
-    a leaf with no slot axis).  In place; returns ``batch_leaves``.
+    a leaf with no slot axis).  Pages go in order, so the last page for a
+    repeated slot wins.  In place; returns ``batch_leaves``.
     ``only`` restricts it to those leaf indices."""
     entries = _normalize_pages(layout, pages)
     slots = _check_slots(layout, slots, len(entries))
@@ -313,6 +322,11 @@ def install_pages_torch(layout: PageLayout, batch_leaves, pages, slots,
 
 def _install_cuda(layout: PageLayout, batch_leaves, entries, slots,
                   dev) -> None:
+    # the kernel writes every page at once, so an earlier page for a slot
+    # that repeats is dropped here: each slot is written once, by its last
+    keep = _last_per_slot(slots)
+    entries = [entries[g] for g in keep]
+    slots = [slots[g] for g in keep]
     addrs = [buf.data_ptr() + row * layout.page_bytes for buf, row in entries]
     rows = []
     max_words = 0
@@ -343,8 +357,8 @@ def install_pages(layout: PageLayout, batch_leaves, pages, slots, *,
     """Scatter G staged pages into the batch cache leaves at ``slots``,
     in place; returns ``batch_leaves`` (tree-flatten order).
 
-    ``pages`` takes every form ``_normalize_pages`` does.  Slots must be
-    distinct.  On CUDA the leaves of ``layout.kernel_groups()`` install
+    ``pages`` takes every form ``_normalize_pages`` does.  A slot may
+    repeat; the last page for it wins.  On CUDA the leaves of ``layout.kernel_groups()`` install
     in one kernel launch; the rest (``fallback_indices()``: no slot axis,
     or an offset not aligned to the itemsize) install through the plain
     version on the same device, after it on the same stream."""

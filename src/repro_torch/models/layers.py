@@ -1,18 +1,24 @@
-"""Attention / MLP / norm / RoPE primitives of the dense-attention family.
+"""Attention / MLP / norm / RoPE primitives of the attention blocks.
 
 Twin of ``repro/models/layers.py`` for the ``"attn"`` block: the same
 shapes, dtypes and rounding points, written as plain functions over a
-params dict of tensors.  Prefill attention is ``attention_chunked``
-(online softmax over (q-chunk, kv-chunk) tiles, accumulator in the input
-dtype); decode attention is ``decode_attention``.  Neither reaches a
-kernel of the port: the reference runs them as XLA programs too.
+params dict of tensors.  Prefill attention goes through
+``kernels.flash_attention.flash_attention`` (the CUDA kernel on the card;
+on the CPU its plain version, ``attention_chunked``, the reference
+model's own prefill attention, re-exported here); decode attention is
+``decode_attention``, plain PyTorch, as the reference runs it as XLA.
+
+A config with ``attention.window`` keeps a ring cache of
+``min(max_len, window)`` rows: token t lives at row ``t % Sbuf``, so
+prefill writes its trailing ``Sbuf`` tokens rolled into place and decode
+writes at ``len % Sbuf``, as the reference does.
 
 In place where the reference is functional: ``attention_apply`` writes
 prefill and decode K/V into the cache tensors it is given and returns
 those same tensors, so a stacked batch cache is updated without a copy.
 
-Not in this slice: the sliding-window ring cache, the int8 KV cache and
-M-RoPE.  Configs that need them raise ``NotImplementedError``.
+Not in this slice: MoE, the int8 KV cache, M-RoPE and the vision and
+audio stubs.  Configs that need them raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    NEG_INF, attention_chunked, flash_attention)
 
 
 @dataclass(frozen=True)
@@ -39,15 +47,16 @@ class ParamDef:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.block_pattern != ("attn",) or cfg.moe is not None:
+    if set(cfg.block_pattern) - {"attn", "rec"} or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense 'attn' block is ported so far")
+            f"{cfg.arch_id}: only the 'attn' and 'rec' blocks are ported "
+            f"so far (no RWKV, no MoE)")
     a = cfg.attention
-    if a.window is not None or a.mrope_sections is not None or \
+    if (a is not None and a.mrope_sections is not None) or \
             cfg.kv_dtype == "int8" or cfg.vision_stub or cfg.audio_stub:
         raise NotImplementedError(
-            f"{cfg.arch_id}: window caches, M-RoPE, int8 KV and the "
-            f"vision/audio stubs are not ported yet")
+            f"{cfg.arch_id}: M-RoPE, int8 KV and the vision/audio stubs "
+            f"are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -88,82 +97,8 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# chunked online-softmax attention
+# attention
 # ---------------------------------------------------------------------------
-
-NEG_INF = -2.0 ** 30
-
-
-def _attend_tile(q, k, v, bias, scale, cap):
-    # q: (B,cq,H,dh) k/v: (B,ck,KV,dh) bias: (cq,ck) fp32
-    B, cq, H, dh = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, cq, KV, G, dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
-    if cap is not None:
-        s = cap * torch.tanh(s / cap)
-    s = s + bias[None, None, None]
-    m = torch.amax(s, dim=-1)                              # (B,KV,G,cq)
-    p = torch.exp(s - m[..., None])
-    l = torch.sum(p, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
-    return (o.reshape(B, cq, H, dh),
-            m.permute(0, 3, 1, 2).reshape(B, cq, H),
-            l.permute(0, 3, 1, 2).reshape(B, cq, H))
-
-
-def _combine(acc, o, m, l):
-    o0, m0, l0 = acc
-    m1 = torch.maximum(m0, m)
-    a0 = torch.exp(m0 - m1)
-    a1 = torch.exp(m - m1)
-    o1 = o0 * a0[..., None].to(o0.dtype) + o * a1[..., None].to(o.dtype)
-    return o1, m1, l0 * a0 + l * a1
-
-
-def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: Optional[int] = None,
-                      chunk_q: int = 1024, chunk_k: int = 1024,
-                      scale: Optional[float] = None,
-                      logit_cap: Optional[float] = None) -> torch.Tensor:
-    """q: (B,S,H,dh); k,v: (B,S,KV,dh) -> (B,S,H,dh). Causal GQA attention.
-
-    Every (q-chunk, kv-chunk) tile is computed and masked, as the
-    reference's scanned path does; the running output stays in the input
-    dtype between tiles."""
-    B, S, H, dh = q.shape
-    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
-    cq, ck = min(chunk_q, S), min(chunk_k, S)
-    if S % cq or S % ck:
-        cq = ck = S   # odd lengths (tests/short prompts): one full tile
-    nq, nk = S // cq, S // ck
-    dev = q.device
-    outs = []
-    for qi in range(nq):
-        q0 = qi * cq
-        qb = q[:, q0:q0 + cq]
-        acc = (torch.zeros((B, cq, H, dh), dtype=q.dtype, device=dev),
-               torch.full((B, cq, H), NEG_INF, dtype=torch.float32,
-                          device=dev),
-               torch.zeros((B, cq, H), dtype=torch.float32, device=dev))
-        qi_idx = q0 + torch.arange(cq, device=dev)[:, None]
-        for ki in range(nk):
-            k0 = ki * ck
-            kb, vb = k[:, k0:k0 + ck], v[:, k0:k0 + ck]
-            ki_idx = k0 + torch.arange(ck, device=dev)[None, :]
-            m = torch.ones((cq, ck), dtype=torch.bool, device=dev)
-            if causal:
-                m &= ki_idx <= qi_idx
-            if window is not None:
-                m &= ki_idx > qi_idx - window
-            bias = torch.where(m, 0.0, NEG_INF).float()
-            acc = _combine(acc, *_attend_tile(qb, kb, vb, bias, scale,
-                                              logit_cap))
-        o, _, l = acc
-        outs.append(o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype))
-    return torch.cat(outs, dim=1)
-
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len: torch.Tensor, *,
@@ -216,7 +151,8 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     "len": (B,)}.  ``mode`` is "prefill" or "decode".
 
     Prefill writes K/V into the front of the pre-sized ``cache`` in
-    place; decode writes one row per batch element at its own position,
+    place (a ring cache shorter than the prompt takes its trailing rows,
+    rolled); decode writes one row per batch element at its own position,
     in place.  ``new_cache`` holds the same tensors (and a fresh "len")."""
     a = cfg.attention
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -230,19 +166,23 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     k = apply_rope(k, pos, a.rope_theta)
 
     if mode == "prefill":
-        o = attention_chunked(
-            q, k, v, causal=True, window=a.window,
-            chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk,
-            scale=a.softmax_scale, logit_cap=a.logit_cap)
+        o = flash_attention(q, k, v, causal=True, window=a.window,
+                            scale=a.softmax_scale, logit_cap=a.logit_cap,
+                            chunk=cfg.attn_chunk)
         B, S = k.shape[:2]
         lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
         if cache is not None:
             kc, vc = cache["k"], cache["v"]
-            if kc.shape[1] < S:
-                raise ValueError(f"prompt of {S} tokens > cache "
-                                 f"{kc.shape[1]}")
-            kc[:, :S] = k
-            vc[:, :S] = v
+            Sbuf = kc.shape[1]
+            if Sbuf < S:
+                # ring cache: token t lives at row t % Sbuf, so the
+                # trailing Sbuf tokens go in rolled by (S - Sbuf) % Sbuf
+                shift = (S - Sbuf) % Sbuf
+                kc.copy_(torch.roll(k[:, -Sbuf:], -shift, dims=1))
+                vc.copy_(torch.roll(v[:, -Sbuf:], -shift, dims=1))
+            else:
+                kc[:, :S] = k
+                vc[:, :S] = v
             new_cache = {"k": kc, "v": vc, "len": lens}
         else:
             new_cache = {"k": k, "v": v, "len": lens}
@@ -252,7 +192,10 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         cur = cache["len"]                                  # (B,)
         kc, vc = cache["k"], cache["v"]
         Sbuf = kc.shape[1]
-        idx = torch.clamp(cur, max=Sbuf - 1).long()
+        if a.window is not None and Sbuf <= a.window:
+            idx = torch.remainder(cur, Sbuf).long()     # ring cache
+        else:
+            idx = torch.clamp(cur, max=Sbuf - 1).long()
         rows = torch.arange(k.shape[0], device=x.device)
         kc[rows, idx] = k[:, 0]
         vc[rows, idx] = v[:, 0]
@@ -268,7 +211,8 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
 def attention_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     a = cfg.attention
-    kv = ParamDef((batch, max_len, a.n_kv_heads, a.d_head),
+    S = min(max_len, a.window) if a.window is not None else max_len
+    kv = ParamDef((batch, S, a.n_kv_heads, a.d_head),
                   ("batch", "kv_seq", "kv_heads", None),
                   dtype=cfg.kv_dtype or None)
     return {"k": kv, "v": kv,

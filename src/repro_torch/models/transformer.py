@@ -1,16 +1,20 @@
-"""Block composition for the ``block_pattern=("attn",)`` family.
+"""Block composition for the ``"attn"`` and ``"rec"`` block kinds.
 
 Twin of ``repro/models/transformer.py``: the same param and cache trees
 (nested dicts, flattened in sorted-key order), so the reference's
 weights and caches carry across leaf for leaf and a packed KV page has
-the same bytes on both sides.  The stacked layer groups (leading axis)
-are applied in a Python loop where the reference scans; each group's
-cache is a view into the stacked tensors, which ``attention_apply``
-updates in place.  Block kinds other than ``"attn"`` raise.
+the same bytes on both sides.  Layers are grouped by
+``cfg.block_pattern`` (e.g. ``("rec", "rec", "attn")``):
+``n_layers // len(pattern)`` pattern groups are stacked (leading axis) as
+``groups/b0..b{p-1}``, and the remainder layers are the unstacked
+``tail/t0..``.  The groups are applied in a Python loop where the
+reference scans; each group's cache is a view into the stacked tensors,
+updated in place (attention K/V) or written back (the fresh "len" and
+recurrent state).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +25,8 @@ from repro_torch.models.layers import (ParamDef, attention_apply,
                                        attention_cache_defs, attention_defs,
                                        check_supported, mlp_apply, mlp_defs,
                                        rms_norm)
+from repro_torch.models.rglru import (rglru_apply, rglru_defs,
+                                      rglru_state_defs)
 
 
 def _map_defs(fn, defs):
@@ -33,27 +39,43 @@ def _map_defs(fn, defs):
 # per-block param/cache definitions
 # ---------------------------------------------------------------------------
 
-def block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     ln = ParamDef((cfg.d_model,), (None,), init="zeros")
-    return {"ln1": ln, "attn": attention_defs(cfg), "ln2": ln,
-            "ffn": mlp_defs(cfg)}
+    if kind == "attn":
+        return {"ln1": ln, "attn": attention_defs(cfg), "ln2": ln,
+                "ffn": mlp_defs(cfg)}
+    if kind == "rec":
+        return {"ln1": ln, "rec": rglru_defs(cfg), "ln2": ln,
+                "ffn": mlp_defs(cfg)}
+    raise ValueError(kind)
 
 
-def block_cache_defs(cfg: ModelConfig, batch: int,
+def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                      max_len: int) -> Dict[str, Any]:
-    return {"attn": attention_cache_defs(cfg, batch, max_len)}
+    if kind == "attn":
+        return {"attn": attention_cache_defs(cfg, batch, max_len)}
+    if kind == "rec":
+        return {"rec": rglru_state_defs(cfg, batch)}
+    raise ValueError(kind)
 
 
-def block_apply(cfg: ModelConfig, p, x, *, mode: str, pos, cache=None):
-    """One "attn" block. Returns (x, new_cache)."""
+def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
+                cache=None):
+    """One block of ``kind``. Returns (x, new_cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, new_attn = attention_apply(
-        cfg, p["attn"], h, mode=mode, pos=pos,
-        cache=None if cache is None else cache["attn"])
+    if kind == "attn":
+        o, new = attention_apply(
+            cfg, p["attn"], h, mode=mode, pos=pos,
+            cache=None if cache is None else cache["attn"])
+    elif kind == "rec":
+        o, new = rglru_apply(cfg, p["rec"], h, mode=mode,
+                             state=None if cache is None else cache["rec"])
+    else:
+        raise ValueError(kind)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp_apply(cfg, p["ffn"], h)
-    return x, {"attn": new_attn}
+    return x, {kind: new}
 
 
 # ---------------------------------------------------------------------------
@@ -66,17 +88,28 @@ def _stacked(n_groups: int, group: dict) -> dict:
                                         init=d.init, dtype=d.dtype), group)
 
 
+def _group_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    p = len(cfg.block_pattern)
+    return cfg.n_layers // p, cfg.n_layers % p
+
+
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's param tree.  With ``block_pattern=("attn",)`` every
-    layer is one stacked group (leading axis ``n_layers``) and there is
-    no tail."""
+    """The reference's param tree: stacked pattern groups, then the
+    unstacked tail."""
     check_supported(cfg)
+    n_groups, n_tail = _group_layout(cfg)
     defs: Dict[str, Any] = {
         "emb": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "d_model"),
                         init="embed"),
         "final_ln": ParamDef((cfg.d_model,), (None,), init="zeros"),
-        "groups": _stacked(cfg.n_layers, {"b0": block_defs(cfg)}),
     }
+    if n_groups:
+        defs["groups"] = _stacked(n_groups, {
+            f"b{i}": block_defs(cfg, k)
+            for i, k in enumerate(cfg.block_pattern)})
+    if n_tail:
+        defs["tail"] = {f"t{i}": block_defs(cfg, cfg.block_pattern[i])
+                        for i in range(n_tail)}
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.vocab, cfg.d_model),
                                    ("vocab", "d_model"))
@@ -85,8 +118,17 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     check_supported(cfg)
-    return {"groups": _stacked(cfg.n_layers, {
-        "b0": block_cache_defs(cfg, batch, max_len)})}
+    n_groups, n_tail = _group_layout(cfg)
+    defs: Dict[str, Any] = {}
+    if n_groups:
+        defs["groups"] = _stacked(n_groups, {
+            f"b{i}": block_cache_defs(cfg, k, batch, max_len)
+            for i, k in enumerate(cfg.block_pattern)})
+    if n_tail:
+        defs["tail"] = {f"t{i}": block_cache_defs(
+            cfg, cfg.block_pattern[i], batch, max_len)
+            for i in range(n_tail)}
+    return defs
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +143,16 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
     dt = torch_dtype(d.dtype or cfg.dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dt, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == "lru_lambda":      # a in ~[0.9, 0.999]
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return (-9.0 + (-4.3 + 9.0) * u).to(dt)
     noise = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                         device=device)
+    if d.init == "small":
+        return (0.01 * noise).to(dt)
     if d.init == "embed":
         return (0.02 * noise).to(dt)
     if d.init == "normal_in":
@@ -141,27 +191,39 @@ def _index(tree, g: int):
     return tree[g]
 
 
-def _write_back(stacked: dict, g: int, new: dict) -> None:
-    """Store group ``g``'s new cache into the stacked tensors (a no-op
-    copy for the K/V views updated in place; "len" is fresh)."""
+def _write_into(cache: dict, new: dict) -> None:
+    """Copy a block's new cache into its cache tensors (views into the
+    stacked tensors for a group), in place: nothing to do for the K/V
+    updated in place; "len" and the recurrent state are fresh."""
     for k, v in new.items():
         if isinstance(v, dict):
-            _write_back(stacked[k], g, v)
-        elif stacked[k][g].data_ptr() != v.data_ptr():
-            stacked[k][g] = v
+            _write_into(cache[k], v)
+        elif cache[k].data_ptr() != v.data_ptr():
+            cache[k].copy_(v)
 
 
 def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
                  caches: Optional[dict] = None):
-    """Run every layer (a Python loop over the stacked groups). Returns
-    (x, caches): ``caches`` are the given cache tensors, updated in place
-    (None when none were given)."""
-    gcaches = caches["groups"]["b0"] if caches else None
-    for g in range(cfg.n_layers):
-        x, nc = block_apply(cfg, _index(params["groups"]["b0"], g), x,
+    """Run every layer: the stacked groups in a Python loop, then the
+    tail.  Returns (x, caches): ``caches`` are the given cache tensors,
+    updated in place (None when none were given)."""
+    n_groups, n_tail = _group_layout(cfg)
+    gcaches = caches.get("groups") if caches else None
+    for g in range(n_groups):
+        for i, kind in enumerate(cfg.block_pattern):
+            b = f"b{i}"
+            x, nc = block_apply(cfg, kind, _index(params["groups"][b], g), x,
+                                mode=mode, pos=pos,
+                                cache=None if gcaches is None
+                                else _index(gcaches[b], g))
+            if gcaches is not None:
+                _write_into(_index(gcaches[b], g), nc)
+    tcaches = caches.get("tail") if caches else None
+    for i in range(n_tail):
+        t = f"t{i}"
+        x, nc = block_apply(cfg, cfg.block_pattern[i], params["tail"][t], x,
                             mode=mode, pos=pos,
-                            cache=None if gcaches is None
-                            else _index(gcaches, g))
-        if gcaches is not None:
-            _write_back(gcaches, g, nc)
+                            cache=None if tcaches is None else tcaches[t])
+        if tcaches is not None:
+            _write_into(tcaches[t], nc)
     return x, caches

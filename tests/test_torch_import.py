@@ -22,7 +22,9 @@ def _port_modules():
 
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
-    assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.serving.engine", "repro_torch.kernels.rg_lru",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.models.rglru"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
             "    sys.modules[m] = None\n"

@@ -167,9 +167,107 @@ def test_bad_arguments_raise():
     page = P.pack_page(port, leaves)
     with pytest.raises(NotImplementedError, match="codec"):
         P.install_pages(port, flat_b, page, [0], codec="int8")
-    with pytest.raises(ValueError, match="distinct"):
-        P.install_pages(port, flat_b, torch.stack([page, page]), [1, 1])
+    with pytest.raises(ValueError, match="must lie in"):
+        P.install_pages(port, flat_b, torch.stack([page, page]), [1, BATCH])
+    with pytest.raises(ValueError, match="must lie in"):
+        P.install_pages_torch(port, flat_b, page, [-1])
     with pytest.raises(ValueError, match="leaf 0"):
         P.pack_page(port, [leaves[0].float()] + leaves[1:])
     with pytest.raises(ValueError, match="bytes"):
         P.install_pages(port, flat_b, page[:-1], [0])
+
+
+@pytest.mark.parametrize("case", ["qwen2-0.5b", "recurrentgemma-2b",
+                                  "synthetic"])
+def test_repeated_slots_last_page_wins(case):
+    """An install whose slots repeat a slot gives the reference's bytes:
+    pages go in order, so the last page for the slot wins."""
+    single, batch, ref, port = _layouts(case)
+    flat_b = jax.tree.leaves(_randomize(batch, 9))
+    pages = _ref_pages(single, ref, (30, 31, 32, 33))
+    slots = [1, 2, 1, 1]
+    want = ops.install_pages(ref, [jnp.asarray(b) for b in flat_b],
+                             jnp.asarray(pages), slots, mode="pallas",
+                             interpret=True)
+    want_ref = ops.install_pages(ref, [jnp.asarray(b) for b in flat_b],
+                                 jnp.asarray(pages), slots, mode="ref")
+    last = P.install_pages(port, [interop.to_torch(b) for b in flat_b],
+                           torch.from_numpy(pages[[1, 3]]), [2, 1])
+    for fn in (P.install_pages_torch, P.install_pages):
+        got = fn(port, [interop.to_torch(b) for b in flat_b],
+                 torch.from_numpy(pages), slots)
+        for g, w, r, l in zip(got, want, want_ref, last):
+            np.testing.assert_array_equal(_bytes(g), _bytes(w))
+            np.testing.assert_array_equal(_bytes(g), _bytes(r))
+            np.testing.assert_array_equal(_bytes(g), _bytes(l))
+    assert P._last_per_slot(slots) == [1, 3]
+
+
+def _nan_payload_pages(single, ref):
+    """Two packed pages whose float leaves hold NaNs with non-canonical
+    payloads (bf16 0x7fbe, f32 0x7fa00001) among finite values."""
+    pages = _ref_pages(single, ref, (40, 41)).copy()
+    for sp in ref.leaves:
+        if sp.dtype not in ("bfloat16", "float32") or not sp.nbytes:
+            continue
+        width = 2 if sp.dtype == "bfloat16" else 4
+        view = pages[:, sp.offset:sp.offset + sp.nbytes].view(
+            np.uint16 if width == 2 else np.uint32)
+        view[:, ::7] = 0x7fbe if width == 2 else 0x7fa00001
+    return pages
+
+
+@pytest.mark.parametrize("case", ["qwen2-0.5b", "recurrentgemma-2b"])
+def test_nan_payloads_are_kept_by_the_port(case):
+    """The reference on the CPU rewrites a NaN's payload to the canonical
+    NaN (0x7fc0 in bf16) in every mode; a DMA, and the port's install,
+    moves the bits unchanged.  So: equal bytes wherever the reference's
+    value is not NaN; where it is NaN, the port's value is NaN too, with
+    the page's own bytes; and pack -> install is byte-exact."""
+    single, batch, ref, port = _layouts(case)
+    flat_b = jax.tree.leaves(_randomize(batch, 4))
+    pages = _nan_payload_pages(single, ref)
+    slots = [2, 0]
+    want = ops.install_pages(ref, [jnp.asarray(b) for b in flat_b],
+                             jnp.asarray(pages), slots, mode="pallas",
+                             interpret=True)
+    tp = torch.from_numpy(pages)
+    got = P.install_pages(port, [interop.to_torch(b) for b in flat_b], tp,
+                          slots)
+    n_nan = 0
+    for sp, g, w in zip(port.leaves, got, want):
+        gb, wb = _bytes(g), _bytes(w)
+        if sp.dtype not in ("bfloat16", "float32"):
+            np.testing.assert_array_equal(gb, wb)
+            continue
+        gv = g.float().numpy().reshape(-1)
+        wv = np.asarray(w, np.float32).reshape(-1)
+        nan = np.isnan(wv)
+        n_nan += int(nan.sum())
+        np.testing.assert_array_equal(np.isnan(gv), nan)
+        isz = 2 if sp.dtype == "bfloat16" else 4
+        keep = np.repeat(~nan, isz)
+        np.testing.assert_array_equal(gb[keep], wb[keep])
+        # where NaN, the port kept the page's payload, byte for byte
+        for s, g_ in zip(slots, range(len(slots))):
+            seg = pages[g_, sp.offset:sp.offset + sp.nbytes]
+            np.testing.assert_array_equal(
+                _bytes(g.narrow(sp.slot_axis, s, 1).contiguous()), seg)
+    assert n_nan > 0
+    # the reference canonicalises: its NaNs are not the page's payload
+    k = next(i for i, sp in enumerate(port.leaves)
+             if sp.dtype == "bfloat16" and sp.slot_axis is not None)
+    wk = np.asarray(want[k]).view(np.uint16)
+    assert set(np.unique(wk[np.isnan(np.asarray(want[k], np.float32))])) \
+        == {0x7fc0}
+    # the port's own round trip keeps every byte
+    leaves = [P._segment(tp, 0, sp) for sp in port.leaves]
+    np.testing.assert_array_equal(P.pack_page(port, leaves).numpy(),
+                                  pages[0])
+    zeros = [interop.to_torch(l) for l in jax.tree.leaves(batch)]
+    back = P.install_pages(port, zeros, P.pack_page(port, leaves), [1])
+    for sp, b, l in zip(port.leaves, back, leaves):
+        if sp.slot_axis is not None:
+            np.testing.assert_array_equal(
+                _bytes(b.narrow(sp.slot_axis, 1, 1).contiguous()),
+                _bytes(l))
