@@ -143,8 +143,6 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
     dt = torch_dtype(d.dtype or cfg.dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dt, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=dt, device=device)
     if d.init == "lru_lambda":      # a in ~[0.9, 0.999]
         u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
                        device=device)
