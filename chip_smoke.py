@@ -9,7 +9,8 @@ and it stops at the first failing phase with a non-zero exit:
 
 1. prints the card's name and power limit (``nvidia-smi``), then builds
    every CUDA source of the port (``page_install.cu``, ``rg_lru.cu``,
-   ``flash_attention.cu``: one ``nvcc`` each, all started together) and
+   ``flash_attention.cu``, ``stream_copy.cu``: one ``nvcc`` each, all
+   started together) and
    prints the build times and ``ptxas``' report;
 2. page kernel phase: at the qwen2-0.5b cache layout (max_len 128 and
    2048) and the recurrentgemma-2b layout (max_len 2304), B=4 slots, G=4
@@ -28,24 +29,41 @@ and it stops at the first failing phase with a non-zero exit:
    shapes: logit cap, bidirectional, ragged S=12, d_head 256;
    ``scaled_dot_product_attention`` with an explicit boolean mask is
    timed beside it as a yardstick the port never calls;
-5. measures the pinned host->device copy rate;
-6. serve phases, each through ``repro_torch.launch.serve.main``:
+5. ``stream_copy`` phase: holds the kernel byte for byte against its
+   input on the reference test's grid and the full Fig-8 grid in
+   float32, bfloat16 and int32 (-0.0 and NaN payloads planted), runs the
+   Fig-8 sweep (``repro_torch.benchmarks.vmem_stream.run``, launches
+   counted) and prints its rows, and times kernel, plain version
+   (``clone``) and ``copy_`` (a yardstick) at one Fig-8 cell (512, 512)
+   and at (65536, 1024) float32, 256 MiB;
+6. codec check: the device decode of a page equals the numpy decode for
+   int8 and bf16 at both archs' serve layouts (and qwen2-0.5b's in
+   float32);
+7. measures the pinned host->device copy rate;
+8. serve phases, each through ``repro_torch.launch.serve.main``:
    full-width qwen2-0.5b (8 requests of 12 tokens on 4 slots) and
    full-width recurrentgemma-2b (8 requests of 2100 tokens on 4 slots,
    max_len 2304, so its 2048-row ring cache wraps), bf16, random weights
    from the seed; each without paging, then with KV paging over xdma,
-   then paged with ``--no-overlap``.  Every kernel launch count is zeroed
-   just before each paged run and read just after: the qwen2 run must
-   launch the page kernels and the flash kernel, the hybrid run all four;
-   every request must install through the fused path; the three runs'
-   outputs must be equal;
-7. reference check: at the smoke size in float32, qwen2-0.5b's and
+   then paged with ``--no-overlap``; the three runs' outputs must be
+   equal, every request must install through the fused path, and the
+   paged run must launch the page kernels and the flash kernel (the
+   hybrid also rg_lru).  Then the capacity modes, paged: qwen2-0.5b with
+   ``--kv-codec bf16`` (the unpaged tokens), ``--kv-codec int8`` fused
+   and ``--no-fused-install`` (equal tokens) and ``--prefix-share`` (the
+   tokens of the unpaged engine on the same prompts); the hybrid with
+   ``--kv-codec int8`` (fused and unfused) and ``--prefix-share``.  Each
+   prints tok/s, TTFT, the spilled bytes' compression ratio and the H2D
+   bytes saved; fused runs must launch pack and install;
+9. reference check: at the smoke size in float32, qwen2-0.5b's and
    recurrentgemma-2b's prefill logits on the card agree with the CPU's
    within 1e-4 (the hybrid prompt of 40 tokens overruns its window of
    32);
 
-then prints the card line, a ``kernels`` JSON line and, last, the device
-JSON line.
+Every kernel launch count is zeroed just before each counted run (the
+paged serves, the capacity serves, the Fig-8 sweep) and read just after;
+the ``kernels`` line sums them.  Last it prints the card line, the
+``kernels`` JSON line (all five kernels) and the device JSON line.
 """
 from __future__ import annotations
 
@@ -60,31 +78,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peak, 700 W limit
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
-SOURCES = ("page_install", "rg_lru", "flash_attention")
+SOURCES = ("page_install", "rg_lru", "flash_attention", "stream_copy")
 PACK_SOURCE = "src/repro_torch/csrc/page_install.cu"
 
 
 def device_time_ms(fn, calls: int = 20, repeats: int = 9,
                    warmup: int = 3) -> float:
-    """Median device milliseconds per ``fn()`` call.  A sleep kernel
-    holds the stream while the host enqueues ``calls`` calls, so the two
-    events bracket back-to-back device work, not the host's enqueue."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    """Median device milliseconds per ``fn()`` call (CUDA events around
+    ``calls`` back-to-back calls, behind a sleep kernel that holds the
+    stream while the host enqueues them)."""
+    from repro_torch.benchmarks.common import time_call
+    return time_call(fn, repeats=repeats, warmup=warmup, calls=calls,
+                     device="cuda") * 1e3
 
 
 def card_line() -> str:
@@ -350,6 +355,138 @@ def flash_checks() -> None:
     flash_check(1, 128, 2, 2, 64, bf16, 2e-2, plain_f32=True, logit_cap=30.0)
 
 
+def _copy_input(R: int, C: int, dtype, seed: int):
+    """Seeded random bits as an (R, C) tensor of ``dtype`` on the card,
+    with -0.0 and NaN payloads planted in float inputs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        a = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (R, C),
+                                          dtype=np.int64).astype(np.int32))
+    elif dtype == torch.bfloat16:
+        bits = rng.integers(0, 2 ** 16, (R, C)).astype(np.uint16)
+        bits.reshape(-1)[:3] = (0x8000, 0x7FBE, 0xFFC1)   # -0.0, NaNs
+        a = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    else:
+        bits = rng.integers(0, 2 ** 32, (R, C), dtype=np.uint64) \
+            .astype(np.uint32)
+        bits.reshape(-1)[:3] = (0x80000000, 0x7FC00123, 0xFF800001)
+        a = torch.from_numpy(bits.view(np.int32)).view(torch.float32)
+    return a.to("cuda")
+
+
+def stream_copy_checks() -> int:
+    """Hold ``stream_copy`` byte for byte against its input on the
+    reference test's grid (tests/test_kernels.py) and the full Fig-8
+    grid, in float32, bfloat16 and int32; returns the cells checked."""
+    import torch
+    from repro_torch.benchmarks import vmem_stream
+    from repro_torch.kernels import streamcopy as SC
+
+    grid = [(64, 128, 8, 1), (64, 128, 8, 2), (256, 256, 32, 4),
+            (128, 128, 128, 2), (64, 256, 16, 3)]
+    grid += [(512, vmem_stream.COLS, br, nb) for br in vmem_stream.BLOCK_ROWS
+             for nb in vmem_stream.BUFFERS]
+    n = 0
+    for R, C, br, nb in grid:
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            x = _copy_input(R, C, dt, seed=R + C + br + nb)
+            y = SC.stream_copy(x, block_rows=br, n_buffers=nb)
+            torch.cuda.synchronize()
+            assert torch.equal(y.view(torch.uint8), x.view(torch.uint8)), \
+                f"stream_copy {(R, C, br, nb, dt)}: bytes differ"
+            n += 1
+    print(f"[stream_copy] {n} cells byte-equal to their input (reference "
+          f"grid + Fig-8 grid, float32/bfloat16/int32, -0.0 and NaN "
+          f"payloads planted)", flush=True)
+    return n
+
+
+def stream_copy_phase(R: int, C: int, cells) -> dict:
+    """Time ``stream_copy`` at each (block_rows, n_buffers) of ``cells``
+    on an (R, C) float32 input, beside its plain version (``clone``) and
+    ``copy_`` into a preallocated tensor (a yardstick the port never
+    calls); returns the numbers of the first cell."""
+    import torch
+    from repro_torch.kernels import streamcopy as SC
+
+    x = _copy_input(R, C, torch.float32, seed=R)
+    dst = torch.empty_like(x)
+    nbytes = x.numel() * 4
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    plain = device_time_ms(lambda: SC.stream_copy_torch(x))
+    lib = device_time_ms(lambda: dst.copy_(x))
+    out = None
+    for br, nb in cells:
+        y = SC.stream_copy(x, block_rows=br, n_buffers=nb)
+        err = int((y.view(torch.uint8).to(torch.int16)
+                   - x.view(torch.uint8).to(torch.int16)).abs().max())
+        assert err == 0, f"stream_copy differs from its input: {err}"
+        del y
+        ms = device_time_ms(lambda: SC.stream_copy(x, block_rows=br,
+                                                   n_buffers=nb))
+        print(f"[stream_copy] ({R}, {C}) float32 {nbytes / 2 ** 20:.0f} MiB "
+              f"block_rows={br} n_buffers={nb} kernel_ms={ms:.5f} "
+              f"plain_ms={plain:.5f} copy__ms={lib:.5f} "
+              f"bound_ms={bound:.5f} share={bound / ms:.3f} "
+              f"(copy_ {bound / lib:.3f})", flush=True)
+        if out is None:
+            out = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "err": float(err),
+                   "bound_ms": bound, "shape": [R, C], "block_rows": br,
+                   "n_buffers": nb}
+    return out
+
+
+def codec_decode_check() -> None:
+    """Device-side ``PageCodec.decode_row`` bytes equal numpy ``decode``
+    for int8 and bf16, at both archs' serve layouts (bf16 caches) and at
+    qwen2-0.5b's layout in float32 (where bf16 casts and int8 quantizes
+    float32 leaves)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import page_install as pi
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import page_codec_for
+
+    cases = [("qwen2-0.5b", 128, None), ("recurrentgemma-2b", 2304, None),
+             ("qwen2-0.5b", 128, "float32")]
+    for arch, max_len, dt in cases:
+        cfg = get_config(arch)
+        if dt:
+            cfg = dataclasses.replace(cfg, dtype=dt)
+        layout = pi.page_layout(T.init_cache(cfg, 1, max_len, "meta"),
+                                T.init_cache(cfg, 2, max_len, "meta"), 2)
+        rng = np.random.default_rng(max_len)
+        parts = []
+        for sp in layout.leaves:
+            if sp.dtype in ("float32", "bfloat16", "float16"):
+                v = rng.standard_normal(sp.nbytes // sp.itemsize) \
+                    .astype(np.float32)
+                if sp.dtype == "bfloat16":
+                    v = (v.view(np.uint32) >> 16).astype(np.uint16)
+                elif sp.dtype == "float16":
+                    v = v.astype(np.float16)
+            else:
+                v = rng.integers(0, 256, sp.nbytes).astype(np.uint8)
+            parts.append(v.view(np.uint8))
+        page = np.concatenate(parts)
+        for name in ("int8", "bf16"):
+            codec = page_codec_for(cfg, max_len, name)
+            enc = np.stack([codec.encode(page), codec.encode(page[::-1])])
+            got = codec.decode_row(torch.from_numpy(enc).to("cuda")).cpu()
+            for g in range(2):
+                want = codec.decode(enc[g])
+                assert np.array_equal(got[g].numpy(), want), \
+                    f"{arch} {name}: device decode differs"
+            print(f"[codec] {arch} {cfg.dtype} max_len={max_len} {name}: "
+                  f"{layout.page_bytes} -> {codec.encoded_bytes} bytes, "
+                  f"device decode byte-equal to numpy", flush=True)
+
+
 def pinned_h2d_gbps(nbytes: int = 64 << 20, repeats: int = 10) -> float:
     import torch
     host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
@@ -370,15 +507,33 @@ def _counters():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import page_install as pi
     from repro_torch.kernels import rg_lru as R
+    from repro_torch.kernels import streamcopy as SC
     return {"pack_page": pi.pack_page, "install_pages": pi.install_pages,
             "flash_attention": FA.flash_attention,
-            "rg_lru_scan": R.rg_lru_scan}
+            "rg_lru_scan": R.rg_lru_scan, "stream_copy": SC.stream_copy}
+
+
+# launches summed over every counted run of a path (each from 0)
+LAUNCHES = {}
+
+
+def counted(run):
+    """Run ``run()`` with every kernel launch count zeroed just before
+    and read just after; the counts are added to ``LAUNCHES`` and
+    returned with the result."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    res = run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+    return res, launches
 
 
 def serve_phase(arch: str, flags, vocab: int, needs) -> dict:
-    """Serve ``arch`` without paging, with paging (every launch count
-    zeroed just before and read just after) and paged with
-    ``--no-overlap``; the three must give the same outputs, and the
+    """Serve ``arch`` without paging, with paging (counted) and paged
+    with ``--no-overlap``; the three must give the same outputs, and the
     kernels of ``needs`` must have launched in the paged run."""
     from repro_torch.launch import serve
 
@@ -388,16 +543,13 @@ def serve_phase(arch: str, flags, vocab: int, needs) -> dict:
     # the run without paging goes first: it also takes the process's
     # first-use costs (cuBLAS handles, allocator growth) off the paged run
     plain = serve.main(common)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    res = serve.main(paged)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    res, launches = counted(lambda: serve.main(paged))
     lat = res["latency"]
     print(f"[serve] {arch} launches={launches} install={res['install']} "
           f"tok_per_s={res['tok_per_s']:.2f} "
           f"ttft_p50_ms={lat['ttft_s']['p50'] * 1e3:.2f} "
-          f"tpot_p50_ms={lat['tpot_s']['p50'] * 1e3:.2f} | unpaged "
+          f"tpot_p50_ms={lat['tpot_s']['p50'] * 1e3:.2f} "
+          f"h2c={res['kv']['h2c_bytes']} | unpaged "
           f"tok_per_s={plain['tok_per_s']:.2f} ttft_p50_ms="
           f"{plain['latency']['ttft_s']['p50'] * 1e3:.2f}", flush=True)
     assert all(launches[n] > 0 for n in needs), (needs, launches)
@@ -416,6 +568,89 @@ def serve_phase(arch: str, flags, vocab: int, needs) -> dict:
           f" ttft_p50_ms={serial['latency']['ttft_s']['p50'] * 1e3:.2f}",
           flush=True)
     return {"result": res, "launches": launches}
+
+
+def shared_prompts_unpaged(arch: str, prompt_len: int, max_len: int):
+    """Outputs of the unpaged engine on the CLI's ``--prefix-share``
+    prompts (seed 0, 8 requests, 16 new tokens, 4 slots): sharing off."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config(arch)
+    params = T.tree_init(T.param_defs(cfg), cfg, 0, "cuda")
+    prompts, pfx_len = serve.draw_prompts(0, 8, prompt_len, cfg.vocab,
+                                          prefix_share=True)
+    eng = ServeEngine(cfg, params, batch_slots=4, max_len=max_len,
+                      device="cuda")
+    for r, p in enumerate(prompts):
+        eng.submit(Request(rid=r, prompt=p, max_new=16, prefix_len=pfx_len))
+    assert eng.run_until_drained() == 0
+    eng.close()
+    return {r.rid: list(r.out_tokens) for r in eng.done}
+
+
+def codec_serve_phase(arch: str, flags, base: dict, modes,
+                      prompt_len: int, max_len: int) -> dict:
+    """Serve ``arch`` paged with each capacity mode of ``modes``
+    (``bf16``, ``int8``, ``share``), every run counted.  Fused runs must
+    launch the page kernels; ``bf16`` must give ``base``'s (the unpaged
+    run's) tokens, ``int8`` the same tokens fused and with
+    ``--no-fused-install``, ``share`` the tokens of sharing off."""
+    from repro_torch.launch import serve
+
+    common = ["--arch", arch, "--requests", "8", "--slots", "4",
+              "--max-new", "16", "--device", "cuda", "--kv-paging",
+              "--access-path", "xdma"] + list(flags)
+    base_h2c = base["kv"]["h2c_bytes"]
+    results = {}
+
+    def run(mode, extra, fused=True):
+        res, launches = counted(lambda: serve.main(common + extra))
+        kv, lat = res["kv"], res["latency"]
+        assert res["requests"] == 8 and res["undrained"] == 0, res
+        if fused:
+            assert launches["pack_page"] > 0 and \
+                launches["install_pages"] > 0, launches
+            assert res["install"]["fused"] == 8, res["install"]
+        else:
+            assert res["install"]["fallback"] == 8, res["install"]
+        ratio = kv["spill_bytes_logical"] / kv["spill_bytes_physical"]
+        print(f"[serve:{mode}] {arch} launches={launches} "
+              f"tok_per_s={res['tok_per_s']:.2f} "
+              f"ttft_p50_ms={lat['ttft_s']['p50'] * 1e3:.2f} "
+              f"tpot_p50_ms={lat['tpot_s']['p50'] * 1e3:.2f} "
+              f"spill_logical={kv['spill_bytes_logical']} "
+              f"spill_physical={kv['spill_bytes_physical']} "
+              f"spill_ratio={ratio:.4f} h2c={kv['h2c_bytes']} "
+              f"h2c_saved={base_h2c - kv['h2c_bytes']} "
+              f"shared_pages={kv['shared_pages']} "
+              f"dedup_bytes_saved={kv['dedup_bytes_saved']}", flush=True)
+        results[mode] = {"tok_per_s": res["tok_per_s"],
+                         "ttft_p50_ms": lat["ttft_s"]["p50"] * 1e3,
+                         "spill_ratio": ratio, "h2c": kv["h2c_bytes"]}
+        return res
+
+    if "bf16" in modes:
+        res = run("kv-codec=bf16", ["--kv-codec", "bf16"])
+        assert res["outputs"] == base["outputs"], \
+            f"{arch}: --kv-codec bf16 changed the tokens"
+    if "int8" in modes:
+        fused = run("kv-codec=int8", ["--kv-codec", "int8"])
+        unfused = run("kv-codec=int8 --no-fused-install",
+                      ["--kv-codec", "int8", "--no-fused-install"],
+                      fused=False)
+        assert fused["outputs"] == unfused["outputs"], \
+            f"{arch}: int8 fused and unfused tokens differ"
+    if "share" in modes:
+        res = run("prefix-share", ["--prefix-share"])
+        assert res["kv"]["shared_pages"] >= 1 and \
+            res["kv"]["dedup_bytes_saved"] > 0, res["kv"]
+        assert res["outputs"] == shared_prompts_unpaged(
+            arch, prompt_len, max_len), \
+            f"{arch}: --prefix-share changed the tokens"
+    return results
 
 
 def reference_check(arch: str, prompt_len: int, max_len: int) -> float:
@@ -484,20 +719,34 @@ def main() -> int:
     fl = flash_phase(1, 2100, 10, 1, 256, window=2048)
     flash_phase(1, 2048, 14, 2, 64)
     flash_phase(1, 12, 14, 2, 64)   # the qwen2-0.5b serve path's prefill
+    stream_copy_checks()
+    from repro_torch.benchmarks import vmem_stream
+    _, sweep = counted(lambda: vmem_stream.run(device="cuda"))
+    print(f"[stream_copy] Fig-8 sweep launches={sweep}", flush=True)
+    assert sweep["stream_copy"] > 0, sweep
+    stream_copy_phase(512, 512, [(32, 2)])   # one Fig-8 cell, 1 MiB
+    sc = stream_copy_phase(65536, 1024, [(1024, 2), (1024, 1), (1024, 4),
+                                         (256, 2)])
+    codec_decode_check()
     gbps = pinned_h2d_gbps()
     print(f"[h2d] pinned host->device 64 MiB: {gbps} GB/s", flush=True)
     page_kernels = ("pack_page", "install_pages")
     qwen = serve_phase("qwen2-0.5b", [], 151936,
                        page_kernels + ("flash_attention",))
+    codec_serve_phase("qwen2-0.5b", [], qwen["result"],
+                      ("bf16", "int8", "share"), 12, 128)
+    hybrid_flags = ["--prompt-len", "2100", "--max-len", "2304"]
     hybrid = serve_phase(
-        "recurrentgemma-2b", ["--prompt-len", "2100", "--max-len", "2304"],
+        "recurrentgemma-2b", hybrid_flags,
         256000, page_kernels + ("flash_attention", "rg_lru_scan"))
+    codec_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
+                      ("int8", "share"), 2100, 2304)
     reference_check("qwen2-0.5b", 12, 32)
     reference_check("recurrentgemma-2b", 40, 64)
 
-    # launches: the sum over the two paged serve runs, each counted from 0
-    launches = {n: qwen["launches"][n] + hybrid["launches"][n]
-                for n in qwen["launches"]}
+    # launches: summed over every counted run (the paged serves, the
+    # codec and prefix-share serves, the Fig-8 sweep), each from 0
+    launches = LAUNCHES
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
     kernels = [
         {"name": "pack_page", "route": "cuda", "source": PACK_SOURCE,
@@ -529,6 +778,17 @@ def main() -> int:
          "library_ms": None,
          "library_note": "no single PyTorch call computes a linear "
                          "recurrence"},
+        {"name": "stream_copy", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_copy.cu",
+         "replaces": "src/repro/kernels/streamcopy.py:24",
+         "launches": launches["stream_copy"], "max_abs_err": sc["err"],
+         "ms": sc["ms"], "plain_ms": sc["plain_ms"],
+         "bound_ms": sc["bound_ms"], "bound_by": "bytes",
+         "library_ms": sc["library_ms"],
+         "shape": {"x": sc["shape"], "dtype": "float32",
+                   "block_rows": sc["block_rows"],
+                   "n_buffers": sc["n_buffers"]},
+         "library_note": "Tensor.copy_ into a preallocated tensor"},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

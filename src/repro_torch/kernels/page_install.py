@@ -8,7 +8,8 @@ leaf's C-order bytes concatenated in tree-flatten order.
 * ``pack_page`` gathers one slot's cache leaves into a (page_bytes,)
   uint8 page; the spill then needs a single D2H.
 * ``install_pages`` scatters G staged pages into the batch cache leaves
-  at ``slots``, in place.
+  at ``slots``, in place; with ``codec=`` the staged pages are encoded
+  (``rmem/codec.py``) and are decoded on their device first.
 
 On CUDA tensors both launch the CUDA C++ kernels of
 ``csrc/page_install.cu`` (one launch each, on the current stream) or
@@ -153,14 +154,15 @@ def _check_leaf(sp: LeafSpec, t: torch.Tensor, shape) -> None:
         raise ValueError(f"leaf {sp.index} is not contiguous")
 
 
-def _normalize_pages(layout: PageLayout, pages) -> List[Tuple[torch.Tensor,
-                                                              int]]:
-    """Accept a (G, page_bytes) uint8 tensor, one (page_bytes,) page, or
-    a sequence of ``(buf, row)`` entries (``buf`` a (page_bytes,) page
-    with row None, or a staged (Gk, page_bytes) group with ``row``
-    selecting one page, as ``TieredStore.ensure_packed`` returns them).
+def _normalize_pages(layout: PageLayout, pages, width: Optional[int] = None
+                     ) -> List[Tuple[torch.Tensor, int]]:
+    """Accept a (G, width) uint8 tensor, one (width,) page, or a sequence
+    of ``(buf, row)`` entries (``buf`` a (width,) page with row None, or
+    a staged (Gk, width) group with ``row`` selecting one page, as
+    ``TieredStore.ensure_packed`` returns them).  ``width`` defaults to
+    ``layout.page_bytes`` (a codec's encoded pages are narrower).
     Returns (contiguous 2-D uint8 buffer, row) per page."""
-    width = layout.page_bytes
+    width = layout.page_bytes if width is None else width
     if isinstance(pages, torch.Tensor):
         pages = pages[None] if pages.ndim == 1 else pages
         entries = [(pages, g) for g in range(pages.shape[0])]
@@ -352,28 +354,54 @@ def _install_cuda(layout: PageLayout, batch_leaves, entries, slots,
     install_pages.launches += 1
 
 
+def _codec_seg(codec, sp: LeafSpec):
+    """The codec segment backing a layout leaf: offsets, widths and
+    dtypes must agree, or the encoded page was built for another tree."""
+    seg = codec.seg_at(sp.offset)
+    if seg is None or seg.nbytes != sp.nbytes or seg.dtype != sp.dtype:
+        raise ValueError(f"codec segment mismatch at byte {sp.offset}: "
+                         f"layout leaf {sp.dtype}x{sp.nbytes}B, codec "
+                         f"has {seg}")
+    return seg
+
+
 def install_pages(layout: PageLayout, batch_leaves, pages, slots, *,
                   codec=None):
     """Scatter G staged pages into the batch cache leaves at ``slots``,
     in place; returns ``batch_leaves`` (tree-flatten order).
 
     ``pages`` takes every form ``_normalize_pages`` does.  A slot may
-    repeat; the last page for it wins.  On CUDA the leaves of ``layout.kernel_groups()`` install
-    in one kernel launch; the rest (``fallback_indices()``: no slot axis,
-    or an offset not aligned to the itemsize) install through the plain
-    version on the same device, after it on the same stream."""
-    if codec is not None:
-        raise NotImplementedError("install_pages(codec=...): the dequant "
-                                  "epilogue waits for the codec slice")
+    repeat; the last page for it wins.  On CUDA the leaves of
+    ``layout.kernel_groups()`` install in one kernel launch; the rest
+    (``fallback_indices()``: no slot axis, or an offset not aligned to
+    the itemsize) install through the plain version on the same device,
+    after it on the same stream.
+
+    ``codec`` (a ``rmem.codec.PageCodec``) declares the staged pages
+    codec-encoded (``codec.encoded_bytes`` wide).  They are decoded on
+    their device into logical pages first (``PageCodec.decode_row``,
+    plain PyTorch, as the reference's Pallas route decodes outside its
+    kernel), then installed as above."""
     batch_leaves = list(batch_leaves)
     if len(batch_leaves) != len(layout.leaves):
         raise ValueError(f"{len(batch_leaves)} leaves != layout "
                          f"{len(layout.leaves)}")
     for sp, leaf in zip(layout.leaves, batch_leaves):
         _check_leaf(sp, leaf, sp.batch_shape)
-    entries = _normalize_pages(layout, pages)
+    width = None
+    if codec is not None:
+        if codec.page_bytes != layout.page_bytes:
+            raise ValueError(f"codec pages {codec.page_bytes}B != "
+                             f"layout {layout.page_bytes}B")
+        for sp in layout.leaves:
+            _codec_seg(codec, sp)
+        width = codec.encoded_bytes
+    entries = _normalize_pages(layout, pages, width)
     slots = _check_slots(layout, slots, len(entries))
     dev = _device_of(batch_leaves + [b for b, _ in entries])
+    if codec is not None:
+        dec = codec.decode_row(torch.stack([b[r] for b, r in entries]))
+        entries = [(dec, g) for g in range(dec.shape[0])]
     if dev.type == "cpu":
         return install_pages_torch(layout, batch_leaves, entries, slots)
     if dev.type != "cuda":

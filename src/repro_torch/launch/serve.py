@@ -9,7 +9,13 @@ card; ``--device cpu`` runs on the CPU.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --max-new 16 [--kv-paging] [--no-overlap] \
-        [--no-fused-install] [--device cpu --smoke]
+        [--no-fused-install] [--kv-codec none|bf16|int8] \
+        [--prefix-share] [--device cpu --smoke]
+
+``--kv-codec`` and ``--prefix-share`` imply ``--kv-paging``.  With
+``--prefix-share`` every prompt opens with one seeded prefix of half its
+length, drawn as the reference draws it, so the same seed gives the
+reference's prompts.
 """
 from __future__ import annotations
 
@@ -45,7 +51,33 @@ def _kv_stats_print(pager, access_path) -> dict:
           f"h2c={kv['h2c_bytes']} "
           f"projected_cold={kv['cold_projected_seconds']*1e3:.2f}ms",
           flush=True)
+    if kv.get("codec") or kv.get("shared_pages"):
+        print(f"[serve:kv-capacity] codec={kv.get('codec')} "
+              f"ratio={kv.get('compression_ratio', 1.0):.2f} "
+              f"cold_logical={kv.get('cold_bytes_logical', 0)} "
+              f"cold_physical={kv.get('cold_bytes_physical', 0)} "
+              f"shared_pages={kv.get('shared_pages', 0)} "
+              f"cow={kv.get('cow_copies', 0)}", flush=True)
     return kv
+
+
+def draw_prompts(seed: int, n: int, prompt_len: int, vocab: int,
+                 prefix_share: bool = False):
+    """The CLI's seeded prompts, in the reference's draw order; returns
+    ``(prompts, prefix_len)``.  With ``prefix_share`` every prompt opens
+    with one seeded prefix of half its length (drawn first); off, the
+    prompts are drawn exactly as without sharing."""
+    rng = np.random.default_rng(seed)
+    pfx_len = max(1, prompt_len // 2) if prefix_share else 0
+    pfx = rng.integers(0, vocab, size=pfx_len).astype(np.int32) \
+        if pfx_len else None
+    prompts = []
+    for _ in range(n):
+        prompt = rng.integers(0, vocab, size=prompt_len).astype(np.int32)
+        if pfx is not None:
+            prompt[:pfx_len] = pfx
+        prompts.append(prompt)
+    return prompts, pfx_len
 
 
 def main(argv=None) -> dict:
@@ -75,6 +107,19 @@ def main(argv=None) -> dict:
                          "install_pages (the CUDA kernels on the card); "
                          "--no-fused-install selects the per-leaf plain "
                          "PyTorch chain — output is bit-exact either way")
+    ap.add_argument("--kv-codec", choices=["none", "bf16", "int8"],
+                    default="none",
+                    help="compress KV pages at the tier boundary "
+                         "(implies --kv-paging): bf16 casts float32 "
+                         "leaves (lossless on bf16 caches), int8 "
+                         "quantizes float leaves per page; pages decode "
+                         "on the device before the install")
+    ap.add_argument("--prefix-share", default=False,
+                    action=argparse.BooleanOptionalAction,
+                    help="dedup KV pages of requests sharing a prompt "
+                         "prefix against one read-only base page "
+                         "(copy-on-write deltas; implies --kv-paging); "
+                         "output is bit-exact with sharing off")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda raises without "
                          "a card; pass cpu to run on the CPU)")
@@ -82,7 +127,8 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     access = args.access_path
-    paging = args.kv_paging or access is not None
+    paging = (args.kv_paging or access is not None or
+              args.kv_codec != "none" or args.prefix_share)
     if paging and access is None:
         access = "xdma"
     cfg = get_config(args.arch)
@@ -95,13 +141,16 @@ def main(argv=None) -> dict:
                       access_path=access if paging else None,
                       kv_doorbell=args.kv_doorbell,
                       overlap=not args.no_overlap,
-                      fused_install=args.fused_install, device=device)
-    rng = np.random.default_rng(args.seed)
+                      fused_install=args.fused_install,
+                      kv_codec=args.kv_codec,
+                      prefix_share=args.prefix_share, device=device)
+    prompts, pfx_len = draw_prompts(args.seed, args.requests,
+                                    args.prompt_len, cfg.vocab,
+                                    args.prefix_share)
     t0 = time.time()
-    for r in range(args.requests):
-        prompt = rng.integers(
-            0, cfg.vocab, size=args.prompt_len).astype(np.int32)
-        eng.submit(Request(rid=r, prompt=prompt, max_new=args.max_new))
+    for r, prompt in enumerate(prompts):
+        eng.submit(Request(rid=r, prompt=prompt, max_new=args.max_new,
+                           prefix_len=pfx_len))
     undrained = eng.run_until_drained()
     dt = time.time() - t0
     summ = summarize_requests(eng.done)

@@ -20,8 +20,17 @@ the spill reads each leaf back and each slot installs leaf by leaf in
 plain PyTorch.  The non-paging install is plain PyTorch either way, as
 in the reference.
 
-Not in this slice: the admission controller, the sharded fabric, page
-codecs and prefix sharing.
+Capacity multipliers, both off by default: ``kv_codec`` compresses each
+page at the tier boundary (``page_codec_for``: the layout's leaves are
+the codec's typed segments; encoded fetch groups install through
+``install_pages(codec=...)``), and ``prefix_share`` dedups the spill of
+a request whose first ``Request.prefix_len`` prompt tokens are shared
+against one read-only base page per prefix.  Tokens are unchanged by
+sharing, and by ``bf16`` on a bf16 cache; ``kv_capacity_bytes`` sets the
+store's soft physical-byte budget, which ``kv_free_pages`` reports.
+
+Not in this slice: the admission controller (which reads
+``kv_free_pages`` and ``kv_page_cost``) and the sharded fabric.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from repro_torch.interop import tree_flatten, tree_unflatten
 from repro_torch.kernels import page_install as pi
 from repro_torch.models import lm
 from repro_torch.models import transformer as T
+from repro_torch.rmem import codec as codecs
 from repro_torch.rmem.store import TieredStore
 
 
@@ -52,6 +62,10 @@ class Request:
     max_new: int = 16
     out_tokens: Optional[List[int]] = None
     failed: Optional[str] = None       # rejection reason (engine kept going)
+    # shared-prefix length: the first prefix_len prompt tokens are a
+    # cross-request prefix; a paging engine with prefix_share=True dedups
+    # the slot's spilled page against the base keyed by those tokens
+    prefix_len: int = 0
     # monotonic lifecycle clocks (perf_counter): submit -> admit is queue
     # wait, submit -> first token is TTFT, first -> done over the
     # remaining tokens is TPOT, submit -> done is e2e latency
@@ -92,12 +106,28 @@ def summarize_requests(done: List[Request]) -> dict:
                          "rids": sorted(r.rid for r in failed)}}
 
 
+def page_codec_for(cfg, max_len: int, codec: Optional[str]):
+    """The engine's page codec: the ``PageLayout``'s leaves become the
+    codec's typed segments, so float KV leaves compress and integer
+    counters pass through raw.  None for ``codec in (None, "none")``."""
+    if codec is None or codec == "none":
+        return None
+    layout = pi.page_layout(T.init_cache(cfg, 1, max_len, "meta"),
+                            T.init_cache(cfg, 2, max_len, "meta"), 2)
+    segs = [codecs.Segment(sp.offset, sp.nbytes, sp.dtype)
+            for sp in layout.leaves if sp.nbytes]
+    return codecs.make_codec(codec, layout.page_bytes, segs)
+
+
 class ServeEngine:
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 256, access_path: Optional[str] = None,
                  kv_doorbell: int = 4,
                  overlap: bool = True, overlap_grace_s: float = 0.002,
-                 fused_install: bool = True, device=None):
+                 fused_install: bool = True,
+                 kv_codec: str = "none", prefix_share: bool = False,
+                 prefix_pages: int = 8,
+                 kv_capacity_bytes: Optional[int] = None, device=None):
         """``params`` must already live on ``device`` (default
         ``"cuda"``, which raises without a card)."""
         self.device = resolve_device(device)
@@ -129,6 +159,11 @@ class ServeEngine:
             T.init_cache(cfg, 1, max_len, "meta"),
             T.init_cache(cfg, batch_slots, max_len, "meta"), batch_slots)
         self._spill_buf: Optional[torch.Tensor] = None
+        self.prefix_share = prefix_share
+        self.prefix_pages = prefix_pages if prefix_share else 0
+        # EWMA of the delta/encoded size ratio store_dedup achieved: the
+        # estimate of a shared request's page cost (prior 0.5)
+        self._share_ratio = 0.5
         self.install_fused = 0          # slots installed via the kernel
         self.install_fallback = 0       # ... vs the per-leaf chain
         self.install_hops_saved = 0     # per-leaf D2H readbacks avoided
@@ -141,13 +176,21 @@ class ServeEngine:
         self.pager: Optional[TieredStore] = None
         if access_path is not None:
             page_bytes = self._layout.page_bytes
-            apath = create_path(access_path, n_pages=batch_slots,
-                                page_bytes=page_bytes, n_channels=2,
+            codec = page_codec_for(cfg, max_len, kv_codec)
+            # the cold tier is sized in physical (encoded) bytes
+            phys_bytes = codec.encoded_bytes if codec is not None \
+                else page_bytes
+            n_tier_pages = batch_slots + self.prefix_pages
+            apath = create_path(access_path, n_pages=n_tier_pages,
+                                page_bytes=phys_bytes, n_channels=2,
                                 n_nodes=1, doorbell_batch=kv_doorbell,
                                 device=self.device)
             self.pager = TieredStore(
-                n_pages=batch_slots, page_shape=(page_bytes,),
-                dtype="uint8", n_hot_slots=batch_slots, path=apath)
+                n_pages=n_tier_pages, page_shape=(page_bytes,),
+                dtype="uint8", n_hot_slots=batch_slots, path=apath,
+                codec=codec,
+                shared_pool=range(batch_slots, n_tier_pages),
+                capacity_bytes=kv_capacity_bytes)
 
     def submit(self, req: Request) -> None:
         req.t_submit_pc = time.perf_counter()
@@ -155,6 +198,41 @@ class ServeEngine:
         obs.async_begin("serve.request", req.rid,
                         prompt_len=len(req.prompt), max_new=req.max_new)
         self.queue.put(req)
+
+    def kv_free_pages(self) -> int:
+        """Free KV page capacity: slots unoccupied whose page is neither
+        resident nor mid-fetch, capped by the store's physical-byte
+        budget when ``kv_capacity_bytes`` is set (compressed or deduped
+        pages leave more of it)."""
+        if self.pager is None:
+            return sum(1 for s in range(self.B)
+                       if self.slot_req[s] is None
+                       and s not in self._pending_install)
+        free = 0
+        for s in range(self.B):
+            if self.slot_req[s] is not None or s in self._pending_install:
+                continue
+            if s in self.pager.slot_of_page or s in self.pager._prefetch:
+                continue
+            free += 1
+        byte_free = self.pager.free_cold_bytes()
+        if byte_free is not None:
+            free = min(free, byte_free // max(self.pager.phys_page_bytes,
+                                              1))
+        return free
+
+    def kv_page_cost(self, req: Request) -> float:
+        """Effective KV page cost of admitting ``req``: 1.0 for a
+        standalone page; for a shared-prefix request whose base is
+        already published, the EWMA of the delta/encoded ratio
+        ``store_dedup`` has achieved."""
+        if self.pager is None or not self.prefix_share or \
+                req.prefix_len <= 0:
+            return 1.0
+        key = req.prompt[:req.prefix_len].tobytes()
+        if self.pager.lookup_shared(key) is None:
+            return 1.0          # the first writer publishes a full base
+        return self._share_ratio
 
     # -- paging ----------------------------------------------------------
     def _to_host(self, page: torch.Tensor) -> np.ndarray:
@@ -170,9 +248,11 @@ class ServeEngine:
         torch.cuda.current_stream(page.device).synchronize()
         return self._spill_buf.numpy()
 
-    def _page_store(self, slot: int, leaves) -> None:
+    def _page_store(self, slot: int, req: Request, leaves) -> None:
         """Pack a slot's prefilled cache to one byte page and spill it to
-        the cold tier; its prefetch starts with the admission round's."""
+        the cold tier (deduplicated against the shared base of its prompt
+        prefix under ``prefix_share``); its prefetch starts with the
+        admission round's."""
         if self.fused_install:
             packed = self._to_host(pi.pack_page(self._layout, leaves))
             self.install_hops_saved += max(0, len(leaves) - 1)
@@ -180,7 +260,12 @@ class ServeEngine:
             packed = np.concatenate(
                 [l.reshape(-1).view(torch.uint8).cpu().numpy()
                  for l in leaves])
-        self.pager.write_page(slot, packed)
+        if self.prefix_share and req.prefix_len > 0:
+            key = req.prompt[:req.prefix_len].tobytes()
+            ratio = self.pager.store_dedup(slot, packed, key)
+            self._share_ratio += 0.5 * (ratio - self._share_ratio)
+        else:
+            self.pager.write_page(slot, packed)
         self._admit_spills.append(slot)
 
     def _flush_spill_prefetch(self) -> None:
@@ -226,7 +311,7 @@ class ServeEngine:
             if self.pager is not None:
                 leaves, spec = tree_flatten(caches1)
                 try:
-                    self._page_store(s, leaves)
+                    self._page_store(s, req, leaves)
                 except RETRIABLE as e:
                     self._shed(req, f"kv page store failed: {e}", slot=s)
                     return
@@ -362,10 +447,19 @@ class ServeEngine:
                 self._install_one(s)
             return
         meta = [self._pending_install.pop(s) for s in ready]
+        # split by staged representation: encoded rows install through
+        # the codec's decode, raw ones (codec off, or delta pages rebuilt
+        # on the host) as they are
+        enc = [s for s in ready if self.pager.staged_encoded(s)]
+        raw = [s for s in ready if s not in enc]
         with obs.span("serve.install", path="fused", slots=len(ready),
                       rids=[m[0].rid for m in meta]):
-            pi.install_pages(self._layout, tree_flatten(self.caches)[0],
-                             [packed[s] for s in ready], ready)
+            leaves = tree_flatten(self.caches)[0]
+            for group, codec in ((raw, None), (enc, self.pager.codec)):
+                if group:
+                    pi.install_pages(self._layout, leaves,
+                                     [packed[s] for s in group], group,
+                                     codec=codec)
         self.install_fused += len(ready)
         for s, (req, tok, _leaves, _spec) in zip(ready, meta):
             self._install_meta(s, req, tok)

@@ -24,7 +24,10 @@ def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert {"repro_torch.serving.engine", "repro_torch.kernels.rg_lru",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.models.rglru"} <= set(mods)
+            "repro_torch.models.rglru", "repro_torch.kernels.streamcopy",
+            "repro_torch.kernels.ops", "repro_torch.quant",
+            "repro_torch.rmem.codec", "repro_torch.benchmarks.common",
+            "repro_torch.benchmarks.vmem_stream"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
             "    sys.modules[m] = None\n"

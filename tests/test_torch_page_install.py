@@ -15,6 +15,7 @@ from repro.kernels import ops  # noqa: E402
 from repro.models import transformer as T  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels import page_install as P  # noqa: E402
+from repro_torch.rmem.codec import make_codec  # noqa: E402
 
 FAMILIES = ["qwen2-0.5b", "rwkv6-1.6b", "qwen2-moe-a2.7b",
             "qwen2-vl-7b", "recurrentgemma-2b"]
@@ -165,8 +166,9 @@ def test_bad_arguments_raise():
     leaves = [interop.to_torch(l) for l in jax.tree.leaves(single)]
     flat_b = [interop.to_torch(l) for l in jax.tree.leaves(batch)]
     page = P.pack_page(port, leaves)
-    with pytest.raises(NotImplementedError, match="codec"):
-        P.install_pages(port, flat_b, page, [0], codec="int8")
+    other = make_codec("int8", port.page_bytes + 4, dtype="float32")
+    with pytest.raises(ValueError, match="codec pages"):
+        P.install_pages(port, flat_b, page, [0], codec=other)
     with pytest.raises(ValueError, match="must lie in"):
         P.install_pages(port, flat_b, torch.stack([page, page]), [1, BATCH])
     with pytest.raises(ValueError, match="must lie in"):

@@ -1,6 +1,8 @@
 """The port's serving path against the reference's: the same float32
 params and prompts give the same greedy tokens, with KV paging over xdma
-(fused install on and off, overlap on and off) and without paging."""
+(fused install on and off, overlap on and off) and without paging; and
+the capacity multipliers (page codecs, prefix sharing, a byte budget)
+within the port and against the reference's ``serve.main``."""
 import dataclasses
 
 import jax
@@ -94,3 +96,166 @@ def test_cli_returns_reference_result_keys():
     assert all(len(v) == 4 for v in got["outputs"].values())
     plain = port_serve.main(flags[:-1] + ["--device", "cpu"])
     assert plain["outputs"] == got["outputs"]
+
+
+# ---------------------------------------------------------------------------
+# capacity multipliers: page codecs and prefix sharing
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bf16_model():
+    """The port's own bf16 smoke model (bf16 caches: the bf16 codec is
+    raw passthrough there)."""
+    from repro_torch.models import transformer as PT
+    pcfg = port_reduce(port_config("qwen2-0.5b"))
+    return pcfg, PT.tree_init(PT.param_defs(pcfg), pcfg, 0, "cpu")
+
+
+def _serve_capacity(cfg, params, *, shared=False, **kw):
+    eng = ServeEngine(cfg, params, batch_slots=2, max_len=64,
+                      access_path="xdma", device="cpu", **kw)
+    rng = np.random.default_rng(8)
+    pfx = rng.integers(0, cfg.vocab, 6).astype(np.int32)
+    for r in range(3):
+        p = rng.integers(0, cfg.vocab, 10).astype(np.int32)
+        if shared:
+            p[:6] = pfx
+        eng.submit(Request(rid=r, prompt=p, max_new=4,
+                           prefix_len=6 if shared else 0))
+    assert eng.run_until_drained() == 0
+    out = {r.rid: list(r.out_tokens) for r in eng.done if r.failed is None}
+    assert len(out) == 3
+    kv = eng.pager.stats()
+    eng.close()
+    return out, kv, eng
+
+
+class TestServeCapacity:
+    def test_defaults_are_byte_compatible(self, bf16_model):
+        cfg, params = bf16_model
+        eng = ServeEngine(cfg, params, batch_slots=2, max_len=64,
+                          access_path="xdma", device="cpu")
+        assert eng.pager.codec is None
+        assert eng.pager.phys_page_bytes == eng.pager.page_bytes
+        assert eng.prefix_pages == 0 and eng.pager.n_pages == 2
+        eng.close()
+
+    def test_bf16_codec_serves_bit_exact(self, bf16_model):
+        cfg, params = bf16_model
+        base, _, _ = _serve_capacity(cfg, params)
+        bf16, kv, _ = _serve_capacity(cfg, params, kv_codec="bf16")
+        assert base == bf16
+        assert kv["codec"] == "bf16"
+        assert kv["phys_page_bytes"] == kv["page_bytes"]
+
+    def test_int8_fused_and_unfused_agree(self, bf16_model):
+        cfg, params = bf16_model
+        fused, kv, eng = _serve_capacity(cfg, params, kv_codec="int8")
+        assert eng.install_fused == 3
+        unfused, _, eng = _serve_capacity(cfg, params, kv_codec="int8",
+                                          fused_install=False)
+        assert eng.install_fallback == 3
+        assert fused == unfused
+        assert kv["spill_bytes_physical"] * 1.9 < kv["spill_bytes_logical"]
+        assert kv["h2c_bytes"] == kv["spill_bytes_physical"]
+
+    def test_prefix_sharing_serves_bit_exact(self, bf16_model):
+        cfg, params = bf16_model
+        off, _, _ = _serve_capacity(cfg, params, shared=True)
+        on, kv, eng = _serve_capacity(cfg, params, shared=True,
+                                      prefix_share=True)
+        assert off == on
+        assert kv["shared_pages"] >= 1 and kv["dedup_bytes_saved"] > 0
+        assert eng.pager.n_pages == 2 + eng.prefix_pages
+        assert eng._share_ratio < 0.5
+
+    def test_page_cost_follows_the_published_base(self, bf16_model):
+        cfg, params = bf16_model
+        eng = ServeEngine(cfg, params, batch_slots=2, max_len=64,
+                          access_path="xdma", prefix_share=True,
+                          device="cpu")
+        p = np.arange(10, dtype=np.int32)
+        req = Request(rid=0, prompt=p, max_new=2, prefix_len=6)
+        assert eng.kv_page_cost(req) == 1.0       # no base yet
+        eng.submit(req)
+        eng.run_until_drained()
+        assert eng.kv_page_cost(Request(rid=1, prompt=p, max_new=2,
+                                        prefix_len=6)) == eng._share_ratio
+        assert eng.kv_page_cost(Request(rid=2, prompt=p, max_new=2)) == 1.0
+        eng.close()
+
+    def test_capacity_bytes_cap_still_drains(self, bf16_model):
+        """A one-page physical budget: ``kv_free_pages`` never reports
+        more than the budget holds, a held page takes it to 0, and the
+        engine still drains (the FIFO refill does not read the budget,
+        as in the reference without an admission controller)."""
+        cfg, params = bf16_model
+        from repro_torch.serving.engine import page_codec_for
+        codec = page_codec_for(cfg, 64, "int8")
+        cap = codec.encoded_bytes
+        eng = ServeEngine(cfg, params, batch_slots=2, max_len=64,
+                          access_path="xdma", kv_codec="int8",
+                          kv_capacity_bytes=cap, device="cpu")
+        assert eng.kv_free_pages() == 1
+        for r in range(3):
+            eng.submit(Request(rid=r, prompt=np.random.default_rng(r)
+                               .integers(0, cfg.vocab, 8)
+                               .astype(np.int32), max_new=3))
+        seen = set()
+        for _ in range(400):
+            active = eng.step()
+            seen.add(eng.kv_free_pages())
+            if active == 0 and eng.idle():
+                break
+        assert seen <= {0, 1} and 0 in seen
+        assert sum(1 for r in eng.done if r.failed is None) == 3
+        assert eng.pager.free_cold_bytes() == cap
+        assert eng.kv_free_pages() == 1
+        eng.close()
+
+
+# ---------------------------------------------------------------------------
+# the CLI's capacity modes against the reference's serve.main, float32
+# ---------------------------------------------------------------------------
+
+CLI_ARCHS = {"qwen2-0.5b": [],
+             "recurrentgemma-2b": ["--prompt-len", "40", "--max-len", "64"]}
+
+
+@pytest.fixture(scope="module", params=sorted(CLI_ARCHS))
+def cli_model(request):
+    arch = request.param
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              dtype="float32")
+    pcfg = dataclasses.replace(port_reduce(port_config(arch)),
+                               dtype="float32")
+    params = T.tree_init(T.param_defs(cfg), cfg, jax.random.PRNGKey(0))
+    pparams = interop.tree_to_torch(jax.tree.map(np.asarray, params))
+    return arch, cfg, pcfg, params, pparams
+
+
+@pytest.mark.parametrize("mode", [
+    ["--kv-codec", "bf16"], ["--kv-codec", "int8"],
+    ["--kv-codec", "int8", "--no-fused-install"], ["--prefix-share"],
+])
+def test_cli_capacity_modes_match_reference(monkeypatch, cli_model, mode):
+    """``serve.main`` of both packages, the reference's float32 weights
+    swapped into both: the same seeded prompts (a shared prefix with
+    ``--prefix-share``) give the same tokens."""
+    arch, cfg, pcfg, params, pparams = cli_model
+    monkeypatch.setattr(ref_serve, "reduce_for_smoke", lambda c: cfg)
+    monkeypatch.setattr(ref_serve.T, "tree_init",
+                        lambda defs, c, key: params)
+    monkeypatch.setattr(port_serve, "reduce_for_smoke", lambda c: pcfg)
+    monkeypatch.setattr(port_serve.T, "tree_init",
+                        lambda defs, c, seed, device: pparams)
+    flags = ["--arch", arch, "--smoke", "--requests", "3", "--max-new",
+             "4"] + CLI_ARCHS[arch] + mode
+    want = ref_serve.main(flags)
+    got = port_serve.main(flags + ["--device", "cpu"])
+    assert got["outputs"] == want["outputs"]
+    assert got["install"] == want["install"]
+    for key in ("codec", "page_bytes", "phys_page_bytes",
+                "spill_bytes_logical", "spill_bytes_physical",
+                "shared_pages", "dedup_bytes_saved", "cow_copies"):
+        assert got["kv"][key] == want["kv"][key], key
