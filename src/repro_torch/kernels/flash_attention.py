@@ -7,9 +7,14 @@ in the reference's layout, and returns (B, S, H, dh) in the input dtype.
 S may have any length: the reference's ``S % block == 0`` is not carried
 over.
 
-On CUDA tensors it launches the CUDA C++ kernel of
-``csrc/flash_attention.cu`` (one launch, on the current stream) or raises;
-on CPU tensors it runs the plain PyTorch version, ``attention_chunked``,
+On CUDA tensors it launches a CUDA C++ kernel of
+``csrc/flash_attention.cu`` on the current stream, or raises: in bf16 the
+warp-specialised TMA and wgmma kernel, one launch per ``MAX_PLAN_TILES``
+q tiles, whose tensor maps (``tensor_map_spec``), q-tile order and live
+k-tile ranges (``launch_plans``) are planned here in plain Python and
+handed to the launch, so that the CPU tests reach the plan that runs; in
+float32 the CUDA-core kernel, one launch.  On CPU tensors it runs the
+plain PyTorch version, ``attention_chunked``,
 which is the reference model's own prefill attention (online softmax over
 (q-chunk, kv-chunk) tiles, the running output in the input dtype).  So on
 the CPU the port's model keeps the reference's order of operations.
@@ -19,7 +24,7 @@ Nothing falls back from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -27,7 +32,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -106,17 +111,120 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# the kernel
+# the bf16 kernel's host plan (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+Q_ROWS = 128           # kFaBQ: q rows of a CTA, two consumers of 64
+K_ROWS = 64            # kFaBK: keys of a k tile
+MAX_PLAN_TILES = 96    # kFaMaxTiles: the plan stays a kernel parameter
+
+
+class TmaSpec(ctypes.Structure):
+    """``TmaSpec`` of csrc/flash_attention.cu: what the launch hands
+    ``cuTensorMapEncodeTiled`` for one of q, k, v."""
+    _fields_ = [("base", ctypes.c_uint64), ("dims", ctypes.c_uint64 * 4),
+                ("strides", ctypes.c_uint64 * 3),
+                ("box", ctypes.c_uint32 * 4), ("swizzle", ctypes.c_uint32)]
+
+
+class FaTile(ctypes.Structure):
+    """``FaTile`` of csrc/flash_attention.cu: one q tile of a launch and
+    the live k tiles of its CTA and of each consumer's 64 rows."""
+    _fields_ = [("qt", ctypes.c_int32), ("lo", ctypes.c_int32),
+                ("hi", ctypes.c_int32), ("c_lo", ctypes.c_int32 * 2),
+                ("c_hi", ctypes.c_int32 * 2)]
+
+
+class FaPlan(ctypes.Structure):
+    """``FaPlan`` of csrc/flash_attention.cu, passed by value as a
+    ``__grid_constant__`` parameter: CTA i of the launch runs tile
+    ``i // (H * B)``, head ``i % (H * B) % H``, batch ``i % (H * B) // H``."""
+    _fields_ = [("n", ctypes.c_int32), ("tile", FaTile * MAX_PLAN_TILES)]
+
+
+def swizzle_bytes(dh: int) -> int:
+    """The swizzle span of a bf16 tile row: 32 B at dh 16, 64 B at dh 32,
+    128 B (a box of 64 columns) from dh 64 on."""
+    return 128 if dh >= 64 else 2 * dh
+
+
+def tensor_map_spec(t: torch.Tensor, rows: int) -> TmaSpec:
+    """The 4-D tensor map of a (B, S, heads, dh) bf16 tensor read through
+    its strides: dims (dh, heads, S, B), the byte strides of heads, S and
+    B, a box of one swizzle span x 1 head x ``rows`` rows x 1 batch."""
+    B, S, n, dh = t.shape
+    sb, ss, sh = t.stride()[:3]
+    sw = swizzle_bytes(dh)
+    isz = t.element_size()
+    return TmaSpec(base=t.data_ptr(), dims=(dh, n, S, B),
+                   strides=(sh * isz, ss * isz, sb * isz),
+                   box=(sw // isz, 1, rows, 1), swizzle=sw)
+
+
+def live_k_tiles(r0: int, rows: int, S: int, causal: bool,
+                 window: Optional[int]) -> Tuple[int, int]:
+    """The k tiles [lo, hi) that q rows [r0, r0 + rows) need: none wholly
+    above the diagonal or wholly before the window, none for rows past
+    ``S``.  The one definition of the live range: the kernel reads these
+    from its plan and computes none itself."""
+    nk = -(-S // K_ROWS)
+    lo = max(0, r0 - window + 1) // K_ROWS if window else 0
+    hi = min(nk, min(r0 + rows - 1, S - 1) // K_ROWS + 1) if causal else nk
+    if r0 >= S or hi < lo:
+        hi = lo
+    return lo, hi
+
+
+def q_tile_order(S: int, causal: bool, window: Optional[int]) -> List[int]:
+    """The q tiles in launch order: the most live k tiles first (under a
+    causal mask the last tile), the later tile first among equals."""
+    nq = -(-S // Q_ROWS)
+
+    def weight(qt):
+        lo, hi = live_k_tiles(qt * Q_ROWS, Q_ROWS, S, causal, window)
+        return hi - lo
+
+    return sorted(range(nq), key=lambda qt: (-weight(qt), -qt))
+
+
+def launch_plans(S: int, causal: bool,
+                 window: Optional[int]) -> List[FaPlan]:
+    """The launches of one call: the q tiles in ``q_tile_order``, at most
+    ``MAX_PLAN_TILES`` a launch, each with the live k tiles of its CTA and
+    of each consumer's 64 rows."""
+    plans = []
+    order = q_tile_order(S, causal, window)
+    for i in range(0, len(order), MAX_PLAN_TILES):
+        chunk = order[i:i + MAX_PLAN_TILES]
+        pl = FaPlan(n=len(chunk))
+        for t, qt in zip(pl.tile, chunk):
+            r0 = qt * Q_ROWS
+            t.qt = qt
+            t.lo, t.hi = live_k_tiles(r0, Q_ROWS, S, causal, window)
+            for c in range(Q_ROWS // 64):
+                t.c_lo[c], t.c_hi[c] = live_k_tiles(r0 + 64 * c, 64, S,
+                                                    causal, window)
+        plans.append(pl)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# the kernels
 # ---------------------------------------------------------------------------
 
 def _kernels() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_launch.argtypes = [
-            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+        lib.flash_attention_f32_launch.argtypes = [
+            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, vp]
-        lib.flash_attention_launch.restype = i32
+        lib.flash_attention_f32_launch.restype = i32
+        spec = ctypes.POINTER(TmaSpec)
+        lib.flash_attention_bf16_launch.argtypes = [
+            spec, spec, spec, vp, vp, ctypes.POINTER(FaPlan), i32, i32,
+            i32, i32, i32, i32, i32, f32, f32, vp]
+        lib.flash_attention_bf16_launch.restype = i32
         lib._typed = True
     return lib
 
@@ -166,7 +274,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     B, S, H, dh = q.shape
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention takes bf16 or float32, not "
                          f"{q.dtype}")
     if dh not in HEAD_DIMS:
@@ -181,19 +289,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_strides(t, name)
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    KV = k.shape[2]
+    win = 0 if window is None else window
+    cap = 0.0 if logit_cap is None else float(logit_cap)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        specs = [tensor_map_spec(t, rows)
+                 for t, rows in ((q, Q_ROWS), (k, K_ROWS), (v, K_ROWS))]
+        o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
+        for pl in launch_plans(S, causal, window):
+            build.check(_kernels().flash_attention_bf16_launch(
+                *(ctypes.byref(sp) for sp in specs), out.data_ptr(),
+                ctypes.cast(o_strides, ctypes.c_void_p), ctypes.byref(pl),
+                B, S, H, KV, dh, int(causal), win, float(scale), cap,
+                stream), "flash_attention")
+            flash_attention.launches += 1
+        return out
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     table = (ctypes.c_longlong * 12)(*strides)
-    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
-    build.check(_kernels().flash_attention_launch(
+    build.check(_kernels().flash_attention_f32_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.cast(table, ctypes.c_void_p), B, S, H, k.shape[2], dh,
-        _DTYPE_CODE[q.dtype], int(causal), 0 if window is None else window,
-        float(scale), 0.0 if logit_cap is None else float(logit_cap),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)),
-        "flash_attention")
+        ctypes.cast(table, ctypes.c_void_p), B, S, H, KV, dh,
+        int(causal), win, float(scale), cap, stream), "flash_attention")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
-

@@ -12,8 +12,10 @@ leaf's C-order bytes concatenated in tree-flatten order.
   (``rmem/codec.py``) and are decoded on their device first.
 
 On CUDA tensors both launch the CUDA C++ kernels of
-``csrc/page_install.cu`` (one launch each, on the current stream) or
-raise; on CPU tensors they run the plain PyTorch versions beside them,
+``csrc/page_install.cu`` on the current stream, or raise: the pack one
+launch per ``MAX_PACK_LEAVES`` non-empty leaves, its leaf table
+(``pack_tables``) passed in the launch's parameters; the install one
+launch; on CPU tensors they run the plain PyTorch versions beside them,
 ``pack_page_torch`` and ``install_pages_torch``.  Nothing falls back from
 the card to the plain version.  Each wrapper counts its kernel launches
 in ``<wrapper>.launches``.
@@ -229,18 +231,63 @@ def _stream_ptr(dev: torch.device) -> ctypes.c_void_p:
 
 
 def _table(rows: Sequence[Sequence[int]], dev: torch.device) -> torch.Tensor:
-    """The launch table, rows of int64 laid end to end: built on the
-    host, then one pinned H2D on the current stream (PyTorch keeps the
+    """The install's launch table, rows of int64 laid end to end: built on
+    the host, then one pinned H2D on the current stream (PyTorch keeps the
     pinned block reserved until that copy has run)."""
     host = torch.tensor([v for r in rows for v in r], dtype=torch.int64)
     return host.pin_memory().to(dev, non_blocking=True)
+
+
+# the pack's launch struct, as csrc/page_install.cu declares it
+PACK_THREADS = 256            # kThreads
+PACK_UNROLL = 4               # kPackUnroll: words a thread copies
+PACK_BLOCK_WORDS = PACK_THREADS * PACK_UNROLL
+MAX_PACK_LEAVES = 120         # kMaxPackLeaves: the table fits 4,096 bytes
+
+
+class PackLeaf(ctypes.Structure):
+    """``PackLeaf`` of csrc/page_install.cu."""
+    _fields_ = [("src", ctypes.c_int64), ("page_offset", ctypes.c_int64),
+                ("nbytes", ctypes.c_int64), ("width", ctypes.c_int32),
+                ("first_block", ctypes.c_int32)]
+
+
+class PackTable(ctypes.Structure):
+    """``PackTable`` of csrc/page_install.cu, passed to the kernel by
+    value as a ``__grid_constant__`` parameter."""
+    _fields_ = [("n", ctypes.c_int32), ("blocks", ctypes.c_int32),
+                ("leaf", PackLeaf * MAX_PACK_LEAVES)]
+
+
+def pack_tables(layout: PageLayout, src_ptrs: Sequence[int],
+                page_ptr: int) -> List[PackTable]:
+    """The pack's launches: one table per ``MAX_PACK_LEAVES`` non-empty
+    leaves, in tree-flatten order.  Each entry holds the leaf's source
+    address, its offset in the page, its size, its copy word
+    (``_launch_width``) and its first block of the launch's flat grid
+    (``PACK_BLOCK_WORDS`` words a block)."""
+    rows = [(int(ptr), sp.offset, sp.nbytes,
+             _launch_width(ptr, page_ptr + sp.offset, sp.nbytes))
+            for sp, ptr in zip(layout.leaves, src_ptrs) if sp.nbytes]
+    tables = []
+    for c in range(0, len(rows), MAX_PACK_LEAVES):
+        chunk = rows[c:c + MAX_PACK_LEAVES]
+        t = PackTable(n=len(chunk))
+        first = 0
+        for i, (src, off, nbytes, w) in enumerate(chunk):
+            t.leaf[i] = PackLeaf(src, off, nbytes, w, first)
+            first += -(-(nbytes // w) // PACK_BLOCK_WORDS)
+        t.blocks = first
+        tables.append(t)
+    return tables
 
 
 def _kernels() -> ctypes.CDLL:
     lib = build.load("page_install")
     if not getattr(lib, "_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pack_page_launch.argtypes = [vp, i32, vp, i64, vp]
+        lib.pack_page_launch.argtypes = [ctypes.POINTER(PackTable), vp,
+                                         i32, vp]
         lib.pack_page_launch.restype = i32
         lib.install_pages_launch.argtypes = [vp, i32, vp, i32, i64, vp]
         lib.install_pages_launch.restype = i32
@@ -263,20 +310,13 @@ def pack_page_torch(layout: PageLayout, leaves) -> torch.Tensor:
 
 def _pack_cuda(layout: PageLayout, leaves, dev) -> torch.Tensor:
     page = torch.empty(layout.page_bytes, dtype=torch.uint8, device=dev)
-    rows = []
-    for sp, leaf in zip(layout.leaves, leaves):
-        if sp.nbytes:
-            w = _launch_width(leaf.data_ptr(), page.data_ptr() + sp.offset,
-                              sp.nbytes)
-            rows.append((leaf.data_ptr(), sp.offset, sp.nbytes, w))
-    if not rows:
-        return page
-    table = _table(rows, dev)
-    build.check(_kernels().pack_page_launch(
-        table.data_ptr(), len(rows), page.data_ptr(),
-        max(n // w for _, _, n, w in rows), _stream_ptr(dev)),
-        "pack_page")
-    pack_page.launches += 1
+    wide = int(layout.page_bytes >= 2 ** 31)
+    for table in pack_tables(layout, [l.data_ptr() for l in leaves],
+                             page.data_ptr()):
+        build.check(_kernels().pack_page_launch(
+            ctypes.byref(table), page.data_ptr(), wide, _stream_ptr(dev)),
+            "pack_page")
+        pack_page.launches += 1
     return page
 
 

@@ -48,7 +48,7 @@ def _kv_stats_print(pager, access_path) -> dict:
     print(f"[serve:kv-paging] path={access_path} "
           f"tier={cold['tier']} "
           f"stored={cold['bytes_stored']} loaded={cold['bytes_loaded']} "
-          f"h2c={kv['h2c_bytes']} "
+          f"h2c={kv['h2c_bytes']} c2h={kv['c2h_bytes']} "
           f"projected_cold={kv['cold_projected_seconds']*1e3:.2f}ms",
           flush=True)
     if kv.get("codec") or kv.get("shared_pages"):

@@ -141,8 +141,14 @@ class TieredStore:
         self._clock = 0
         self._last_use = [0] * self.n_hot_slots
         self.h2c_bytes = 0
+        # C2H (device -> host) bytes: written back by dirty evictions,
+        # which need the dirty tracking this store does not have yet, so
+        # every eviction is clean and this stays 0
+        self.c2h_bytes = 0
         self._prefetch: Dict[int, Tuple[PendingIO, int]] = {}
         self.evictions = 0
+        self.clean_evictions = 0
+        self.writeback_bytes_skipped = 0
         self.prefetch_issued = 0
         self.prefetch_hits = 0
         self.staged_hops = 0            # resident-writeback H2C transfers
@@ -335,8 +341,11 @@ class TieredStore:
         s = min(range(self.n_hot_slots), key=lambda i: self._last_use[i])
         old = self.page_in_slot[s]
         if old is not None:
-            # the cold copy is current (see module doc): nothing moves
+            # the cold copy is current (see module doc): a clean page,
+            # whose C2H drain and cold store are skipped
             self.evictions += 1
+            self.clean_evictions += 1
+            self.writeback_bytes_skipped += self.page_bytes
             if obs.trace.enabled():
                 obs.instant("tier.evict", page=old)
             del self.slot_of_page[old]
@@ -704,14 +713,13 @@ class TieredStore:
         phys = self.cold_bytes_physical
         logical = self.cold_bytes_logical
         return obs.export_stats("tier", {
-            "h2c_bytes": self.h2c_bytes,
+            "h2c_bytes": self.h2c_bytes, "c2h_bytes": self.c2h_bytes,
             "page_bytes": self.page_bytes,
             "phys_page_bytes": self.phys_page_bytes,
             "codec": self.codec.name if self.codec is not None else "none",
             "cold": cold,
             "cold_bytes_moved": moved,
             "cold_projected_seconds": projected,
-            "cold_pages": len(self._phys_used),
             "cold_bytes_logical": logical,
             "cold_bytes_physical": phys,
             "compression_ratio": logical / phys if phys else 1.0,
@@ -724,6 +732,9 @@ class TieredStore:
             "cow_copies": self.cow_copies,
             "dedup_bytes_saved": self.dedup_bytes_saved,
             "evictions": self.evictions,
+            "clean_evictions": self.clean_evictions,
+            "dirty_evictions": self.evictions - self.clean_evictions,
+            "writeback_bytes_skipped": self.writeback_bytes_skipped,
             "prefetch_issued": self.prefetch_issued,
             "prefetch_hits": self.prefetch_hits,
             "staged_hops": self.staged_hops,

@@ -303,6 +303,33 @@ class TestStoreCodec:
             assert kv["spill_bytes_logical"] >= 4 * 256
             assert kv["spill_bytes_physical"] >= 4 * 68
 
+    @pytest.mark.parametrize("codec", [None, "int8"])
+    def test_eviction_counters_equal_the_reference(self, codec):
+        """Misses on a 2-slot store evict; every eviction is clean (no
+        page was written on the device), in both packages."""
+        vals = {p: _f32_page(64, seed=40 + p) for p in range(4)}
+        with _store(codec=codec) as st, \
+                RefStore(4, (64,), dtype="float32", n_hot_slots=2,
+                         codec=codec) as ref:
+            for p, v in vals.items():
+                st.write_page(p, v)
+                ref.write_page(p, v)
+            for pages in ([0], [1], [2], [3], [0, 1], [2]):
+                got = st.ensure(pages)
+                want = ref.ensure(pages)
+                for p in pages:
+                    np.testing.assert_array_equal(got[p].numpy(),
+                                                  np.asarray(want[p]))
+            got, want = st.stats(), ref.stats()
+            assert got["evictions"] > 0
+            for key in ("evictions", "clean_evictions", "dirty_evictions",
+                        "writeback_bytes_skipped", "c2h_bytes",
+                        "h2c_bytes"):
+                assert got[key] == want[key], key
+            assert got["dirty_evictions"] == 0 and got["c2h_bytes"] == 0
+            assert got["writeback_bytes_skipped"] == \
+                got["evictions"] * st.page_bytes
+
     def test_capacity_budget_tracks_physical_bytes(self):
         with _store(codec="int8", capacity_bytes=3 * 68) as st:
             assert st.free_cold_bytes() == 3 * 68

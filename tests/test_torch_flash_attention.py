@@ -2,7 +2,13 @@
 reference model's chunked attention) against the reference's Pallas
 kernel in interpret mode and its dense oracle, over the grid of
 ``tests/test_kernels.py`` (S capped at 256) at its bars: 2e-5 in float32,
-2e-2 in bf16; plus ragged lengths against the oracle."""
+2e-2 in bf16; plus ragged lengths against the oracle; and the bf16
+kernel's host plan (launch structs against the CUDA source, q-tile
+order, live k ranges against the dense mask, tensor maps)."""
+import ctypes
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,3 +105,130 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError, match=r"\(B,S,KV,dh\)"):
         FA.flash_attention(q, torch.zeros(1, 8, 2, 16),
                            torch.zeros(1, 8, 1, 16))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's host plan: structs, q-tile order, live k ranges, TMA
+# ---------------------------------------------------------------------------
+
+CU = (pathlib.Path(FA.__file__).resolve().parent.parent / "csrc" /
+      "flash_attention.cu").read_text()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", CU).group(1))
+
+
+def _cu_fields(struct):
+    body = re.search(rf"struct {struct} {{(.*?)\n}};", CU, re.S).group(1)
+    return [(m.group(1), m.group(2)) for m in
+            re.finditer(r"^\s*([A-Za-z_][\w ]*?)\s+"
+                        r"(\w+(?:\[\w+\])?(?:, \w+(?:\[\w+\])?)*);",
+                        body, re.M)]
+
+
+def test_plan_structs_match_the_source():
+    assert (_cu_const("kFaBQ"), _cu_const("kFaBK"),
+            _cu_const("kFaMaxTiles")) == (FA.Q_ROWS, FA.K_ROWS,
+                                          FA.MAX_PLAN_TILES)
+    assert _cu_fields("FaTile") == [("int", "qt"), ("int", "lo, hi"),
+                                    ("int", "c_lo[2], c_hi[2]")]
+    assert [n for n, _ in FA.FaTile._fields_] == ["qt", "lo", "hi", "c_lo",
+                                                 "c_hi"]
+    assert _cu_fields("FaPlan") == [("int", "n"),
+                                    ("FaTile", "tile[kFaMaxTiles]")]
+    assert _cu_fields("TmaSpec") == [
+        ("unsigned long long", "base"), ("unsigned long long", "dims[4]"),
+        ("unsigned long long", "strides[3]"), ("unsigned int", "box[4]"),
+        ("unsigned int", "swizzle")]
+    # the C layouts: 7 ints; n then the tiles; 8 + 32 + 24 + 16 + 4 bytes,
+    # padded to 8
+    assert ctypes.sizeof(FA.FaTile) == 28
+    assert ctypes.sizeof(FA.FaPlan) == 4 + 28 * FA.MAX_PLAN_TILES
+    assert FA.FaPlan.tile.offset == 4
+    assert ctypes.sizeof(FA.TmaSpec) == 88
+    assert [getattr(FA.TmaSpec, f).offset for f in
+            ("base", "dims", "strides", "box", "swizzle")] == \
+        [0, 8, 40, 64, 80]
+    # three 128-byte tensor maps, the params and the plan fit 4,096 bytes
+    assert 3 * 128 + 64 + ctypes.sizeof(FA.FaPlan) <= 4096
+
+
+MASKS = [(S, causal, window) for S in (12, 65, 2100)
+         for causal in (True, False) for window in (None, 100, 2048)]
+
+
+def _dense_mask(S, causal, window):
+    q = np.arange(S)[:, None]
+    k = np.arange(S)[None, :]
+    m = np.ones((S, S), bool)
+    if causal:
+        m &= k <= q
+    if window is not None:
+        m &= k > q - window
+    return m
+
+
+def _needed(mask, r0, rows):
+    """k tiles that hold a live (q, k) pair for q rows [r0, r0 + rows)."""
+    cols = mask[r0:r0 + rows].any(axis=0)
+    return {c // FA.K_ROWS for c in np.flatnonzero(cols)}
+
+
+@pytest.mark.parametrize("S,causal,window", MASKS)
+def test_q_tiles_are_visited_once_heaviest_first(S, causal, window):
+    plans = FA.launch_plans(S, causal, window)
+    tiles = [t for pl in plans for t in pl.tile[:pl.n]]
+    assert sorted(t.qt for t in tiles) == list(range(-(-S // FA.Q_ROWS)))
+    weights = [t.hi - t.lo for t in tiles]
+    assert weights == sorted(weights, reverse=True)
+
+
+@pytest.mark.parametrize("S,causal,window", MASKS)
+def test_live_k_tiles_equal_the_dense_mask(S, causal, window):
+    """Each plan tile's [lo, hi), and each consumer's, is exactly the set
+    of k tiles that hold a live pair for its rows: no live tile dropped,
+    no dead one visited."""
+    mask = _dense_mask(S, causal, window)
+    for pl in FA.launch_plans(S, causal, window):
+        for t in pl.tile[:pl.n]:
+            r0 = t.qt * FA.Q_ROWS
+            assert set(range(t.lo, t.hi)) == _needed(mask, r0, FA.Q_ROWS)
+            for c in range(2):
+                assert set(range(t.c_lo[c], t.c_hi[c])) == \
+                    _needed(mask, r0 + 64 * c, 64)
+                assert t.lo <= t.c_lo[c] and t.c_hi[c] <= t.hi or \
+                    t.c_lo[c] == t.c_hi[c]
+
+
+def test_long_sequences_take_several_launches():
+    S = FA.MAX_PLAN_TILES * FA.Q_ROWS + 5
+    plans = FA.launch_plans(S, True, None)
+    assert [pl.n for pl in plans] == [FA.MAX_PLAN_TILES, 1]
+    assert sorted(t.qt for pl in plans for t in pl.tile[:pl.n]) == \
+        list(range(FA.MAX_PLAN_TILES + 1))
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("dh", FA.HEAD_DIMS)
+def test_tensor_map_spec_addresses_every_element(layout, dh):
+    """The tensor map's dims and byte strides reach each element of q
+    where its own strides do, for the reference's (B, S, H, dh) layout
+    and a (B, H, S, dh) tensor viewed through a transpose."""
+    B, S, H = 2, 70, 3
+    x = torch.zeros((B, S, H, dh), dtype=torch.bfloat16)
+    if layout == "bhsd":
+        x = torch.zeros((B, H, S, dh), dtype=torch.bfloat16).transpose(1, 2)
+    sp = FA.tensor_map_spec(x, FA.Q_ROWS)
+    assert tuple(sp.dims) == (dh, H, S, B)
+    assert sp.swizzle == FA.swizzle_bytes(dh) and sp.swizzle <= 128
+    assert tuple(sp.box) == (sp.swizzle // 2, 1, FA.Q_ROWS, 1)
+    assert dh % sp.box[0] == 0 and all(st % 16 == 0 for st in sp.strides)
+    sh, ss, sb = sp.strides
+    b, s, h, d = np.meshgrid(*(np.arange(n) for n in (B, S, H, dh)),
+                             indexing="ij")
+    got = sp.base + 2 * d + sh * h + ss * s + sb * b
+    st = x.stride()
+    want = x.data_ptr() + 2 * (st[0] * b + st[1] * s + st[2] * h + d)
+    np.testing.assert_array_equal(got, want)
+

@@ -1,7 +1,14 @@
 """Page pack and install of the port against the reference's Pallas
 kernels (interpret mode), byte for byte, on the five cache families of
 ``tests/test_kernels.py`` plus one tree with a leaf that has no slot axis
-and one whose offset is not aligned to its itemsize."""
+and one whose offset is not aligned to its itemsize; and the pack
+kernel's launch tables (struct layout against the CUDA source, each byte
+written once, the served layouts in one launch, long layouts split)."""
+import bisect
+import ctypes
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -273,3 +280,132 @@ def test_nan_payloads_are_kept_by_the_port(case):
             np.testing.assert_array_equal(
                 _bytes(b.narrow(sp.slot_axis, 1, 1).contiguous()),
                 _bytes(l))
+
+
+# ---------------------------------------------------------------------------
+# the pack kernel's launch tables (host side: no card needed)
+# ---------------------------------------------------------------------------
+
+CU = (pathlib.Path(P.__file__).resolve().parent.parent / "csrc" /
+      "page_install.cu").read_text()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\w+);", CU).group(1))
+
+
+def test_pack_table_matches_the_source():
+    assert (_cu_const("kThreads"), _cu_const("kPackUnroll"),
+            _cu_const("kMaxPackLeaves")) == (P.PACK_THREADS, P.PACK_UNROLL,
+                                             P.MAX_PACK_LEAVES)
+    leaf = re.search(r"struct PackLeaf {(.*?)\n};", CU, re.S).group(1)
+    assert re.findall(r"^\s*(long long|int) (\w+);", leaf, re.M) == [
+        ("long long", "src"), ("long long", "page_offset"),
+        ("long long", "nbytes"), ("int", "width"), ("int", "first_block")]
+    assert [(n, ctypes.sizeof(t)) for n, t in P.PackLeaf._fields_] == [
+        ("src", 8), ("page_offset", 8), ("nbytes", 8), ("width", 4),
+        ("first_block", 4)]
+    table = re.search(r"struct PackTable {(.*?)\n};", CU, re.S).group(1)
+    assert re.findall(r"^\s*(\w+) (\w+(?:\[\w+\])?);", table, re.M) == [
+        ("int", "n"), ("int", "blocks"), ("PackLeaf", "leaf[kMaxPackLeaves]")]
+    assert ctypes.sizeof(P.PackLeaf) == 32
+    assert P.PackTable.leaf.offset == 8
+    # the table and the page pointer fit a launch's 4,096 bytes
+    assert ctypes.sizeof(P.PackTable) == 8 + 32 * P.MAX_PACK_LEAVES
+    assert ctypes.sizeof(P.PackTable) + 8 <= 4096
+
+
+def _emulate_pack(tables, page_bytes, sources):
+    """The kernel's index arithmetic in numpy: each block finds its leaf
+    by a binary search over the running offsets, each thread copies
+    ``PACK_UNROLL`` words ``PACK_THREADS`` apart.  Returns the page and
+    how often each byte was written."""
+    page = np.zeros(page_bytes, np.uint8)
+    writes = np.zeros(page_bytes, np.int64)
+    lane = np.arange(P.PACK_THREADS)
+    for t in tables:
+        firsts = [t.leaf[i].first_block for i in range(t.n)]
+        for b in range(t.blocks):
+            L = t.leaf[bisect.bisect_right(firsts, b) - 1]
+            words = L.nbytes // L.width
+            src = sources[L.src].reshape(-1, L.width)
+            dst = page[L.page_offset:L.page_offset + L.nbytes] \
+                .reshape(-1, L.width)
+            for u in range(P.PACK_UNROLL):
+                i = (b - L.first_block) * P.PACK_BLOCK_WORDS + \
+                    u * P.PACK_THREADS + lane
+                i = i[i < words]
+                dst[i] = src[i]
+                for w in range(L.width):
+                    writes[L.page_offset + i * L.width + w] += 1
+    return page, writes
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pack_tables_write_every_byte_once(case):
+    """The launch tables, run through the kernel's index arithmetic,
+    give the plain pack's page and write each byte exactly once."""
+    single, _, _, port = _layouts(case)
+    leaves = [interop.to_torch(l)
+              for l in jax.tree.leaves(_randomize(single, 13))]
+    page_ptr = 1 << 20
+    tables = P.pack_tables(port, [l.data_ptr() for l in leaves], page_ptr)
+    sources = {l.data_ptr(): _bytes(l) for l in leaves}
+    page, writes = _emulate_pack(tables, port.page_bytes, sources)
+    np.testing.assert_array_equal(page,
+                                  P.pack_page_torch(port, leaves).numpy())
+    assert (writes == 1).all()
+    assert len(tables) == 1
+
+
+@pytest.mark.parametrize("arch,max_len,n_leaves", [
+    ("qwen2-0.5b", 128, 3), ("qwen2-0.5b", 2048, 3),
+    ("recurrentgemma-2b", 2304, 11)])
+def test_served_layouts_fit_one_launch(arch, max_len, n_leaves):
+    """The full-width layouts that chip_smoke.py serves: their non-empty
+    leaves fit one launch's table, in page order, and the table's blocks
+    cover each leaf's words."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as PT
+    cfg = get_config(arch)
+    layout = P.page_layout(PT.init_cache(cfg, 1, max_len, "meta"),
+                           PT.init_cache(cfg, 4, max_len, "meta"), 4)
+    ptrs = [(1 << 30) + (i << 26) for i in range(len(layout.leaves))]
+    (table,) = P.pack_tables(layout, ptrs, 1 << 34)
+    assert table.n == n_leaves == sum(sp.nbytes > 0 for sp in layout.leaves)
+    end, first = 0, 0
+    for i in range(table.n):
+        L = table.leaf[i]
+        assert L.page_offset == end and L.first_block == first
+        assert L.nbytes % L.width == 0
+        end += L.nbytes
+        first += -(-(L.nbytes // L.width) // P.PACK_BLOCK_WORDS)
+    assert end == layout.page_bytes and table.blocks == first
+    assert layout.page_bytes < 2 ** 31   # 32-bit indices
+
+
+def test_layout_past_max_leaves_splits_into_launches():
+    """250 leaves (some empty, some odd-sized) take three launches of at
+    most ``MAX_PACK_LEAVES`` leaves; together they write the plain
+    pack's page, every byte once."""
+    rng = np.random.default_rng(3)
+    dtypes = [np.float32, np.int8, ml_dtypes.bfloat16, np.int32]
+    single, batch = {}, {}
+    for i in range(250):
+        dt = dtypes[i % 4]
+        n = 0 if i % 37 == 5 else int(rng.integers(1, 300))
+        single[f"l{i:03d}"] = (rng.standard_normal((1, n)) * 100) \
+            .astype(np.float32).astype(dt)
+        batch[f"l{i:03d}"] = np.zeros((2, n), dt)
+    port = P.page_layout(interop.tree_to_torch(single),
+                         interop.tree_to_torch(batch), 2)
+    leaves = [interop.to_torch(l) for l in jax.tree.leaves(single)]
+    tables = P.pack_tables(port, [l.data_ptr() for l in leaves], 1 << 20)
+    n_live = sum(sp.nbytes > 0 for sp in port.leaves)
+    assert [t.n for t in tables] == [120, 120, n_live - 240]
+    assert all(t.leaf[0].first_block == 0 for t in tables)
+    sources = {l.data_ptr(): _bytes(l) for l in leaves if l.numel()}
+    page, writes = _emulate_pack(tables, port.page_bytes, sources)
+    np.testing.assert_array_equal(page,
+                                  P.pack_page_torch(port, leaves).numpy())
+    assert (writes == 1).all()

@@ -84,18 +84,39 @@ def test_paging_off_matches_paging_on(setup, reference_outputs):
     assert outs == reference_outputs
 
 
-def test_cli_returns_reference_result_keys():
+def _assert_kv_keys_match(got, want):
+    assert set(got["kv"]) == set(want["kv"])
+    assert got["kv"]["c2h_bytes"] == want["kv"]["c2h_bytes"] == 0
+
+
+def test_cli_returns_reference_result_keys(capsys):
     flags = ["--smoke", "--requests", "3", "--max-new", "4",
              "--kv-paging"]
     want = ref_serve.main(flags)
+    capsys.readouterr()
     got = port_serve.main(flags + ["--device", "cpu"])
+    assert "c2h=0 " in next(line for line in capsys.readouterr().out
+                            .splitlines()
+                            if line.startswith("[serve:kv-paging]"))
     assert set(got) == set(want)
     assert set(got["install"]) == set(want["install"])
     assert set(got["latency"]) == set(want["latency"])
+    _assert_kv_keys_match(got, want)
     assert got["requests"] == 3 and got["install"]["fused"] == 3
     assert all(len(v) == 4 for v in got["outputs"].values())
     plain = port_serve.main(flags[:-1] + ["--device", "cpu"])
     assert plain["outputs"] == got["outputs"]
+
+
+@pytest.mark.parametrize("mode", [["--kv-codec", "int8"],
+                                  ["--prefix-share"]],
+                         ids=["kv-codec-int8", "prefix-share"])
+def test_cli_kv_keys_match_reference_in_capacity_modes(mode):
+    flags = ["--smoke", "--requests", "3", "--max-new", "4"] + mode
+    want = ref_serve.main(flags)
+    got = port_serve.main(flags + ["--device", "cpu"])
+    _assert_kv_keys_match(got, want)
+    assert set(got["kv"]["cold"]) == set(want["kv"]["cold"])
 
 
 # ---------------------------------------------------------------------------
