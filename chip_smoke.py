@@ -21,8 +21,12 @@ and it stops at the first failing phase with a non-zero exit:
    launches per call, and times kernel, plain version and one library
    call with CUDA events (device time, median of 9 repeats of 20 calls);
 3. ``rg_lru_scan`` phase at (B, T, W) = (1, 2100, 2560), the hybrid
-   serve prefill, and (4, 2048, 2560): kernel against its plain float32
-   loop within 1e-5, and timed;
+   serve prefill, and (4, 2048, 2560): kernel bit-equal to its plain
+   float32 loop (``torch.equal``), timed, and printed with its launch
+   plan (CTAs, tile, stages, bytes in flight, TMA or cp.async route);
+   then bit-equal at three ragged shapes: (2, 1001, 776) on the TMA
+   route, (2, 1001, 770) and (1, 333, 130) on the cp.async route
+   (``W % 4 != 0``), the last two without ``h0``;
 4. ``flash_attention`` phase: timed at the hybrid prefill (S=2100, 10
    heads, 1 KV head, d_head 256, window 2048, bf16) and at qwen2-0.5b's
    (S=2048, 14/2 heads, d_head 64, causal, bf16) and at the qwen2-0.5b
@@ -41,7 +45,8 @@ and it stops at the first failing phase with a non-zero exit:
    Fig-8 sweep (``repro_torch.benchmarks.vmem_stream.run``, launches
    counted) and prints its rows, and times kernel, plain version
    (``clone``) and ``copy_`` (a yardstick) at one Fig-8 cell (512, 512)
-   and at (65536, 1024) float32, 256 MiB;
+   and at (65536, 1024) float32, 256 MiB, each row with its CTA count P
+   and slice bytes;
 6. codec check: the device decode of a page equals the numpy decode for
    int8 and bf16 at both archs' serve layouts (and qwen2-0.5b's in
    float32);
@@ -236,36 +241,50 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
     return t
 
 
-def rg_lru_phase(B: int, T: int, W: int) -> dict:
-    """Hold ``rg_lru_scan`` against its plain float32 loop (both are
-    sequential float32, each step one rounded multiply and one rounded
-    add, so they agree to 1e-5 and in practice bit for bit) and time
-    both."""
+def rg_lru_phase(B: int, T: int, W: int, timed: bool = True,
+                 h0: bool = True) -> dict:
+    """Hold ``rg_lru_scan`` bit for bit against its plain float32 loop
+    (both are sequential float32, each step one rounded multiply and one
+    rounded add, in the same order) and, with ``timed``, time both."""
     import torch
+    from repro_torch.device import sm_count
     from repro_torch.kernels import rg_lru as R
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(T + W)
     a = 0.5 + 0.499 * torch.rand((B, T, W), generator=gen, device="cuda")
     b = torch.randn((B, T, W), generator=gen, device="cuda")
-    h0 = torch.randn((B, W), generator=gen, device="cuda")
-    got = R.rg_lru_scan(a, b, h0)
-    want = R.rg_lru_scan_torch(a, b, h0)
+    h = torch.randn((B, W), generator=gen, device="cuda") if h0 else None
+    got = R.rg_lru_scan(a, b, h)
+    want = R.rg_lru_scan_torch(a, b, h)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     assert bool(torch.isfinite(got).all()), "rg_lru_scan: non-finite"
-    assert err <= 1e-5, f"rg_lru_scan differs from its plain version: {err}"
+    assert torch.equal(got, want), \
+        f"rg_lru_scan {(B, T, W)} is not bit-equal to its plain version " \
+        f"(max abs err {err})"
+    n_sms = sm_count(a.device)
+    pl = R.plan(B, T, W, n_sms)
+    in_flight = R.bytes_in_flight(pl, B, W, n_sms)
+    plan = (f"ctas={R.n_ctas(pl, B, W)} tile={pl.tile} steps={pl.steps} "
+            f"stages={pl.stages} in_flight={in_flight}B "
+            f"route={'tma' if pl.tma else 'cp.async'}")
+    if not timed:
+        print(f"[rg_lru] check B={B} T={T} W={W} h0={h0} {plan} "
+              f"bit_equal=True", flush=True)
+        return {"err": err}
     t = {"err": err,
-         "ms": device_time_ms(lambda: R.rg_lru_scan(a, b, h0)),
+         "ms": device_time_ms(lambda: R.rg_lru_scan(a, b, h)),
          # the plain loop issues 2 T ops: one call, three repeats
-         "plain_ms": device_time_ms(lambda: R.rg_lru_scan_torch(a, b, h0),
+         "plain_ms": device_time_ms(lambda: R.rg_lru_scan_torch(a, b, h),
                                     calls=1, repeats=3, warmup=1),
          # a, b read and h written once (12 B T W), h0 read once (4 B W);
          # the final state is h[:, -1], not a separate output
          "bound_ms": (12 * B * T * W + 4 * B * W) / HBM_BYTES_PER_S * 1e3}
-    print(f"[rg_lru] B={B} T={T} W={W} max_abs_err={err:.3e} "
+    print(f"[rg_lru] B={B} T={T} W={W} {plan} bit_equal=True "
           f"kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
-          f"bound_ms={t['bound_ms']:.5f}", flush=True)
+          f"bound_ms={t['bound_ms']:.5f} "
+          f"share={t['bound_ms'] / t['ms']:.3f}", flush=True)
     return t
 
 
@@ -479,6 +498,7 @@ def stream_copy_phase(R: int, C: int, cells) -> dict:
     ``copy_`` into a preallocated tensor (a yardstick the port never
     calls); returns the numbers of the first cell."""
     import torch
+    from repro_torch.device import sm_count
     from repro_torch.kernels import streamcopy as SC
 
     x = _copy_input(R, C, torch.float32, seed=R)
@@ -496,8 +516,10 @@ def stream_copy_phase(R: int, C: int, cells) -> dict:
         del y
         ms = device_time_ms(lambda: SC.stream_copy(x, block_rows=br,
                                                    n_buffers=nb))
+        ctas, slice_bytes = SC.plan(br * C * 4, nb, sm_count(x.device))
         print(f"[stream_copy] ({R}, {C}) float32 {nbytes / 2 ** 20:.0f} MiB "
-              f"block_rows={br} n_buffers={nb} kernel_ms={ms:.5f} "
+              f"block_rows={br} n_buffers={nb} ctas={ctas} "
+              f"slice={slice_bytes}B kernel_ms={ms:.5f} "
               f"plain_ms={plain:.5f} copy__ms={lib:.5f} "
               f"bound_ms={bound:.5f} share={bound / ms:.3f} "
               f"(copy_ {bound / lib:.3f})", flush=True)
@@ -788,6 +810,9 @@ def main() -> int:
     kernel_phase(2304, arch="recurrentgemma-2b")
     lru = rg_lru_phase(1, 2100, 2560)
     rg_lru_phase(4, 2048, 2560)
+    rg_lru_phase(2, 1001, 776, timed=False)               # ragged, TMA
+    rg_lru_phase(2, 1001, 770, timed=False, h0=False)     # cp.async
+    rg_lru_phase(1, 333, 130, timed=False, h0=False)      # cp.async
     flash_checks()
     fl = flash_phase(1, 2100, 10, 1, 256, window=2048)
     flash_phase(1, 2048, 14, 2, 64)

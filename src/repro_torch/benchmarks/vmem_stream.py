@@ -34,7 +34,7 @@ from repro_torch.benchmarks.common import (bench_seed, emit,
                                            set_bench_seed, time_call)
 from repro_torch.core.analytical import bandwidth_gbps, paper_pcie_bram
 from repro_torch.core.channels import Direction
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, sm_count
 from repro_torch.kernels import ops
 from repro_torch.kernels.streamcopy import plan
 
@@ -72,9 +72,7 @@ def run(quick: bool = False, device=None) -> List[dict]:
                    "block_bytes": block_bytes, "bytes": nbytes,
                    "us": t * 1e6, "paper_bram_gbps": paper_bw}
             if cuda:
-                n_sms = torch.cuda.get_device_properties(dev) \
-                    .multi_processor_count
-                ctas, stage = plan(block_bytes, nb, n_sms)
+                ctas, stage = plan(block_bytes, nb, sm_count(dev))
                 row.update(h100_copy_gbps=nbytes / t / 1e9,
                            bound_share=2 * nbytes / HBM_BYTES_PER_S / t,
                            ctas=ctas, stage_bytes=stage)

@@ -94,11 +94,11 @@
 // cudaGetLastError() (or cudaErrorInvalidValue for a tensor map that
 // cuTensorMapEncodeTiled refuses).
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
-                    // at run time (tensor_map_encoder)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_map.cuh"   // CUtensorMap; tensor_map_encoder
 
 namespace {
 
@@ -850,33 +850,6 @@ int launch_f32(const Params& p, int B, cudaStream_t stream) {
   dim3 grid((p.S + kBQ - 1) / kBQ, p.H, B);
   flash_attention_f32_kernel<DH><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver that the runtime already
-// loaded, so this library links no libcuda of its own.
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // Rows past S (and any box past a tensor's end) arrive as zeros.

@@ -28,24 +28,32 @@
 // (128 x 512 float32), more than the 227 KB of shared memory one CTA may
 // use, and one CTA reaches only a small share of the card's memory rate.
 // So every block's block_bytes contiguous bytes are cut into P slices of
-// slice_bytes (a multiple of 16; the last slice is shorter), one per CTA,
-// and each CTA walks all blocks in order with its own ring of n_buffers
-// slice-sized stages.  Across the card n_buffers blocks are then in
-// flight at once, as on the TPU.  The wrapper (kernels/streamcopy.py::
-// plan) picks P: the SM count, or more where n_buffers stages of
-// ceil(block_bytes / SMs) bytes would not fit 232,448 bytes; never more
-// than block_bytes / 16 (every slice at least 16 bytes).  It raises where
-// no P fits and never changes block_rows or n_buffers.  Bulk copies need
-// 16-byte aligned addresses and sizes: the wrapper raises unless both
-// base pointers and block_bytes are multiples of 16.
+// slice_bytes, a multiple of 128 so that every slice starts on a 128-byte
+// line (only the last slice is shorter), one per CTA, and each CTA walks
+// all blocks in order with its own ring of n_buffers slice-sized stages.
+// Across the card n_buffers blocks are then in flight at once, as on the
+// TPU, whatever P is.  The wrapper (kernels/streamcopy.py::plan) picks P
+// so that about four stages sit on each SM: one CTA per SM with four
+// buffers, two with two, four with one.  A CTA's copies are serial (its
+// next load into a stage waits for the store that reads it), so an SM
+// with one CTA of one or two stages idles between them; with several
+// CTAs, one CTA's wait hides behind another's load.  P is raised where
+// n_buffers stages would not fit 232,448 bytes and never exceeds one
+// 128-byte line a slice.  The wrapper raises where no P fits and never
+// changes block_rows or n_buffers.  Bulk copies need 16-byte aligned
+// addresses and sizes: the wrapper raises unless both base pointers and
+// block_bytes are multiples of 16.
 //
 // What bounds it: bytes.  Each byte is read once and written once,
 // 2 * R * C * itemsize bytes over the H100 SXM's published 3.35 TB/s; no
 // arithmetic.  The bytes in flight, n_buffers * block_bytes across the
 // card, bound the rate by Little's law once they fall below the rate
 // times the copy latency: the paper's small-transfer, single-channel
-// flank, which the Fig-8 sweep reproduces.  PERF.md holds the times
-// chip_smoke.py measured.
+// flank, which the Fig-8 sweep reproduces.  Above it (4 MiB blocks, 2 or
+// 4 buffers) the kernel stays a few percent short of Tensor.copy_: there
+// P moves the rate little, and an evict-first L2 policy on the bulk
+// copies, tried, slowed the 1 MiB blocks and the Fig-8 rows, so the copies
+// carry no cache hint.  PERF.md holds the times chip_smoke.py measured.
 //
 // The kernel allocates nothing and does not synchronise: it launches on
 // the stream the caller passes, and the entry point returns
@@ -57,6 +65,7 @@
 namespace {
 
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a CTA may use
+constexpr int kLine = 128;         // slices start on 128-byte lines
 
 __host__ __device__ constexpr int header_bytes(int n_buffers) {
   // one 8-byte mbarrier per stage, padded so stages start 128-aligned
@@ -152,7 +161,8 @@ extern "C" int stream_copy_launch(const void* src, void* dst,
                                   int slice_bytes, int n_ctas, int n_buffers,
                                   void* stream) {
   if (block_bytes < 16 || block_bytes % 16 || n_blocks < 1 ||
-      slice_bytes < 16 || slice_bytes % 16 || n_ctas < 1 || n_buffers < 1)
+      slice_bytes < kLine || slice_bytes % kLine || n_ctas < 1 ||
+      n_buffers < 1)
     return cudaErrorInvalidValue;
   if (static_cast<long long>(n_ctas - 1) * slice_bytes >= block_bytes ||
       static_cast<long long>(n_ctas) * slice_bytes < block_bytes)

@@ -5,6 +5,8 @@ it never carries on on the CPU.  Only an explicit ``"cpu"`` runs there.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -19,3 +21,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, read once per
+    device (the kernels' launch plans ask on every call)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)

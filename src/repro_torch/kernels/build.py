@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``csrc/build/lib<name>-<hash>.so`` for ``sm_90a``, at first use.  The
-hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one is loaded as it is.  ``build`` starts one ``nvcc`` per
-source, all together, and waits for them; nothing here runs at import.
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an unchanged one is loaded as
+it is.  ``build`` starts one ``nvcc`` per source, all together, and waits
+for them; nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

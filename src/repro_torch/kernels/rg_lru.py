@@ -11,6 +11,10 @@ launch, on the current stream) or raises; on CPU tensors it runs the plain
 PyTorch version beside it, ``rg_lru_scan_torch``.  Nothing falls back
 from the card to the plain version.  ``rg_lru_scan.launches`` counts the
 kernel's launches.
+
+``plan`` is the kernel's launch rule (channels per CTA, time steps per
+stage, ring depth, TMA or cp.async route) and ``tensor_map`` the TMA
+geometry it implies; the source note of ``csrc/rg_lru.cu`` explains both.
 """
 from __future__ import annotations
 
@@ -19,7 +23,85 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
+
+MAX_SMEM = 232448        # dynamic shared memory one CTA may use
+SM_SMEM = 233472         # shared memory of one SM; each CTA also holds 1 KB
+TILES = (16, 32)         # channels of a CTA
+STEPS = 64               # time steps of a stage
+IN_FLIGHT = 8 << 20      # bytes of a and b the ring keeps in flight
+
+
+class LruPlan(ctypes.Structure):
+    """``struct LruPlan`` of ``csrc/rg_lru.cu``."""
+    _fields_ = [("tile", ctypes.c_int), ("steps", ctypes.c_int),
+                ("stages", ctypes.c_int), ("tma", ctypes.c_int)]
+
+
+class LruMap(ctypes.Structure):
+    """``struct LruMap`` of ``csrc/rg_lru.cu``: one 3-D tensor map."""
+    _fields_ = [("dims", ctypes.c_ulonglong * 3),
+                ("strides", ctypes.c_ulonglong * 2),
+                ("box", ctypes.c_uint * 3)]
+
+
+def header_bytes(stages: int) -> int:
+    return (16 * stages + 127) // 128 * 128
+
+
+def stage_bytes(pl: LruPlan) -> int:
+    """One stage: ``steps`` rows of the tile's a, then of its b."""
+    return 2 * pl.steps * pl.tile * 4
+
+
+def smem_bytes(pl: LruPlan) -> int:
+    """The ring, then two h buffers of a stage's size (one being written
+    while the other's TMA store reads it)."""
+    return header_bytes(pl.stages) + (pl.stages + 1) * stage_bytes(pl)
+
+
+def n_ctas(pl: LruPlan, B: int, W: int) -> int:
+    """One CTA per (batch row, tile of channels)."""
+    return B * -(-W // pl.tile)
+
+
+def bytes_in_flight(pl: LruPlan, B: int, W: int, n_sms: int) -> int:
+    """Bytes of a and b that the rings of the CTAs resident at once hold
+    (every stage of a ring in flight when the chains wait on memory)."""
+    per_sm = min(32, SM_SMEM // (smem_bytes(pl) + 1024))
+    return min(n_ctas(pl, B, W), n_sms * per_sm) * pl.stages * \
+        stage_bytes(pl)
+
+
+def plan(B: int, T: int, W: int, n_sms: int,
+         aligned: bool = True) -> LruPlan:
+    """The launch of a (B, T, W) scan on ``n_sms`` SMs.
+
+    Tiles of 32 channels where ``B * ceil(W / 32)`` CTAs cover the SMs,
+    else 16; stages of ``STEPS`` time steps; enough stages that the CTAs
+    hold ``IN_FLIGHT`` bytes in their rings, at least two (one where the
+    scan has one stage), at most the scan's own stage count and what fits
+    ``MAX_SMEM``.  TMA where the rows are 16-byte multiples
+    (``W % 4 == 0``) and a, b 16-byte aligned (``aligned``), else
+    cp.async."""
+    tile = TILES[1] if B * -(-W // TILES[1]) >= n_sms else TILES[0]
+    pl = LruPlan(tile=tile, steps=STEPS, stages=1,
+                 tma=int(W % 4 == 0 and aligned))
+    stage = stage_bytes(pl)
+    chunks = -(-T // STEPS)
+    want = -(-IN_FLIGHT // (n_ctas(pl, B, W) * stage))
+    # header_bytes(s) <= 16 s + 112: the most stages that fit MAX_SMEM
+    fit = (MAX_SMEM - 112 - stage) // (stage + 16)
+    pl.stages = min(max(want, 2), fit, chunks)
+    return pl
+
+
+def tensor_map(pl: LruPlan, B: int, T: int, W: int) -> LruMap:
+    """The TMA geometry of a, b and the output under ``pl``: dims
+    (W, T, B), the byte strides of T and B, a box of tile x steps x 1."""
+    return LruMap(dims=(W, T, B), strides=(4 * W, 4 * T * W),
+                  box=(pl.tile, pl.steps, 1))
 
 
 def rg_lru_scan_torch(a: torch.Tensor, b: torch.Tensor,
@@ -38,7 +120,9 @@ def _kernels() -> ctypes.CDLL:
     lib = build.load("rg_lru")
     if not getattr(lib, "_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rg_lru_scan_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.rg_lru_scan_launch.argtypes = [
+            vp, vp, vp, vp, i32, i32, i32, ctypes.POINTER(LruPlan),
+            ctypes.POINTER(LruMap), vp]
         lib.rg_lru_scan_launch.restype = i32
         lib._typed = True
     return lib
@@ -75,9 +159,12 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
     if not all(t.is_contiguous() for t in (a, b, h0) if t is not None):
         raise ValueError("rg_lru_scan's kernel takes contiguous tensors")
     out = torch.empty_like(a)
+    pl = plan(B, T, W, sm_count(a.device),
+              aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    tmap = ctypes.byref(tensor_map(pl, B, T, W)) if pl.tma else None
     build.check(_kernels().rg_lru_scan_launch(
         a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-        out.data_ptr(), B, T, W,
+        out.data_ptr(), B, T, W, ctypes.byref(pl), tmap,
         ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)),
         "rg_lru_scan")
     rg_lru_scan.launches += 1

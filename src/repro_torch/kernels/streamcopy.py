@@ -27,10 +27,13 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 MAX_SMEM = 232448           # dynamic shared memory one CTA may use
 ALIGN = 16                  # bulk copies move 16-byte aligned extents
+LINE = 128                  # slices start on 128-byte lines
+STAGES_PER_SM = 4           # ring stages the plan puts on each SM
 
 
 def stream_copy_torch(x: torch.Tensor) -> torch.Tensor:
@@ -44,23 +47,28 @@ def _header_bytes(n_buffers: int) -> int:
 
 def plan(block_bytes: int, n_buffers: int, n_sms: int) -> Tuple[int, int]:
     """(P, slice_bytes): the kernel cuts each block of ``block_bytes``
-    into P slices of ``slice_bytes`` (a multiple of 16; the last one
+    into P slices of ``slice_bytes`` (a multiple of ``LINE``; the last one
     shorter), one per CTA, each with ``n_buffers`` stages of that size.
 
-    P is ``n_sms``, raised until the stages fit ``MAX_SMEM`` and lowered
-    so that no slice is empty.  Raises ``ValueError`` where no P fits."""
+    P follows the copy: about ``STAGES_PER_SM`` stages on each SM, so one
+    CTA (four buffers), two (two) or four (one buffer) share an SM and one
+    CTA's wait for its store to read a stage hides behind another's load;
+    more CTAs where the stages would not fit ``MAX_SMEM``; never a slice
+    under ``LINE`` bytes but the last.  Raises ``ValueError`` where no P
+    fits."""
     if block_bytes < ALIGN or block_bytes % ALIGN:
         raise ValueError(f"stream_copy's kernel moves blocks of a multiple "
                          f"of {ALIGN} bytes, not {block_bytes}")
     budget = MAX_SMEM - _header_bytes(n_buffers)
-    max_slice = budget // n_buffers // ALIGN * ALIGN
-    if max_slice < ALIGN:
-        raise ValueError(f"{n_buffers} stages of {ALIGN} bytes do not fit "
+    max_slice = budget // n_buffers // LINE * LINE
+    if max_slice < LINE:
+        raise ValueError(f"{n_buffers} stages of {LINE} bytes do not fit "
                          f"{MAX_SMEM} bytes of shared memory")
-    n = max(n_sms, -(-block_bytes // max_slice))
-    n = min(n, block_bytes // ALIGN)
+    n = max(n_sms * max(1, STAGES_PER_SM // n_buffers),
+            -(-block_bytes // max_slice))
+    n = min(n, -(-block_bytes // LINE))
     slice_bytes = -(-block_bytes // n)
-    slice_bytes = -(-slice_bytes // ALIGN) * ALIGN
+    slice_bytes = -(-slice_bytes // LINE) * LINE
     return -(-block_bytes // slice_bytes), slice_bytes
 
 
@@ -105,8 +113,7 @@ def stream_copy(x: torch.Tensor, *, block_rows: int = 256,
     if x.data_ptr() % ALIGN or out.data_ptr() % ALIGN:
         raise ValueError(f"stream_copy's kernel needs {ALIGN}-byte aligned "
                          f"tensors")
-    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_ctas, slice_bytes = plan(block_bytes, n_buffers, n_sms)
+    n_ctas, slice_bytes = plan(block_bytes, n_buffers, sm_count(x.device))
     build.check(_kernels().stream_copy_launch(
         x.data_ptr(), out.data_ptr(), block_bytes, n_blocks, slice_bytes,
         n_ctas, n_buffers,

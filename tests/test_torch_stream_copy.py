@@ -2,6 +2,8 @@
 (interpret mode) on ``tests/test_kernels.py``'s grid, its byte identity,
 its argument checks, its CTA layout rule, the kernel facade, and the
 Fig-8 sweep twin on the CPU."""
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,11 +73,11 @@ def test_bad_arguments_raise_value_error(shape, br, nb, match):
 
 
 @pytest.mark.parametrize("block_bytes,nb,n_sms,want", [
-    (256 * 1024, 2, 132, (132, 2000)),     # Fig-8's largest block
-    (16 * 1024, 1, 132, (128, 128)),       # a slice is 16 bytes at least
-    (4 << 20, 4, 132, (132, 31776)),
-    (64 << 20, 2, 132, (578, 116112)),     # the stages force P past SMs
-    (16, 3, 132, (1, 16)),
+    (256 * 1024, 2, 132, (256, 1024)),     # Fig-8's largest block
+    (16 * 1024, 1, 132, (128, 128)),       # a slice is one line at least
+    (4 << 20, 4, 132, (132, 31872)),
+    (64 << 20, 2, 132, (579, 115968)),     # the stages force P past SMs
+    (16, 3, 132, (1, 128)),
 ])
 def test_plan_fits_every_stage_into_shared_memory(block_bytes, nb, n_sms,
                                                   want):
@@ -98,6 +100,67 @@ def test_every_fig8_cell_fits():
         for nb in vmem_stream.BUFFERS:
             n, s = SC.plan(br * vmem_stream.COLS * 4, nb, 132)
             assert SC._header_bytes(nb) + nb * s <= SC.MAX_SMEM
+
+
+@pytest.mark.parametrize("block_bytes", [
+    16, 48, 4096, 16 * 1024, 64 * 1024, 256 * 1024, 1 << 20, (1 << 20) + 16,
+    4 << 20, 3 * 1000 * 16])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_plan_slices_start_on_lines_and_cover_each_block(block_bytes, nb):
+    """Slice i is [i s, min((i + 1) s, block)): every one starts on a
+    128-byte line and holds bytes, and together they are the block."""
+    n, s = SC.plan(block_bytes, nb, 132)
+    assert s % SC.LINE == 0
+    starts = [i * s for i in range(n)]
+    ends = [min(a + s, block_bytes) for a in starts]
+    assert all(a % SC.LINE == 0 and e > a for a, e in zip(starts, ends))
+    assert starts[0] == 0 and ends[-1] == block_bytes
+    assert all(e == a for e, a in zip(ends, starts[1:]))
+    assert all(e - a == s for a, e in zip(starts[:-1], ends[:-1]))
+    assert SC._header_bytes(nb) + nb * s <= SC.MAX_SMEM
+
+
+@pytest.mark.parametrize("block_bytes,nb,want", [
+    (4 << 20, 1, 521), (4 << 20, 2, 263), (4 << 20, 4, 132),
+    (1 << 20, 2, 256), (16 * 1024, 1, 128),
+])
+def test_plan_puts_about_four_stages_on_each_sm(block_bytes, nb, want):
+    """The 256 MiB rows of chip_smoke.py: four CTAs an SM with one
+    buffer, two with two, one with four; never past one line a slice."""
+    n, s = SC.plan(block_bytes, nb, 132)
+    assert n == want
+    lines = -(-block_bytes // SC.LINE)
+    target = min(lines, 132 * max(1, SC.STAGES_PER_SM // nb))
+    # slices rounded up to whole lines take a few CTAs off the target
+    assert 0.95 * target <= n <= target
+
+
+def test_launch_checks_slices_on_lines():
+    cu = (pathlib.Path(SC.__file__).resolve().parent.parent / "csrc" /
+          "stream_copy.cu").read_text()
+    assert f"constexpr int kLine = {SC.LINE};" in cu
+    assert "slice_bytes % kLine" in cu
+
+
+def test_sm_count_is_read_once_per_device(monkeypatch):
+    from repro_torch import device as D
+    calls = []
+
+    class Props:
+        multi_processor_count = 132
+
+    def props(index):
+        calls.append(index)
+        return Props()
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    D._sm_count.cache_clear()
+    try:
+        dev = torch.device("cuda", 3)
+        assert D.sm_count(dev) == 132 and D.sm_count(dev) == 132
+        assert calls == [3]
+    finally:
+        D._sm_count.cache_clear()
 
 
 def test_facade_reexports_the_kernel_modules():
