@@ -265,7 +265,7 @@ def rg_lru_phase(B: int, T: int, W: int, timed: bool = True,
         f"(max abs err {err})"
     n_sms = sm_count(a.device)
     pl = R.plan(B, T, W, n_sms)
-    in_flight = R.bytes_in_flight(pl, B, W, n_sms)
+    in_flight = R.n_ctas(pl, B, W) * pl.stages * R.stage_bytes(pl)
     plan = (f"ctas={R.n_ctas(pl, B, W)} tile={pl.tile} steps={pl.steps} "
             f"stages={pl.stages} in_flight={in_flight}B "
             f"route={'tma' if pl.tma else 'cp.async'}")

@@ -53,7 +53,10 @@
 // 4 buffers) the kernel stays a few percent short of Tensor.copy_: there
 // P moves the rate little, and an evict-first L2 policy on the bulk
 // copies, tried, slowed the 1 MiB blocks and the Fig-8 rows, so the copies
-// carry no cache hint.  PERF.md holds the times chip_smoke.py measured.
+// carry no cache hint.  With four buffers P stays at the SM count, and
+// 128-byte lines make the largest slice of a 4 MiB block 0.3% larger than
+// an even cut into 16-byte multiples: that row is a little slower than
+// one without lines.  PERF.md holds the times chip_smoke.py measured.
 //
 // The kernel allocates nothing and does not synchronise: it launches on
 // the stream the caller passes, and the entry point returns

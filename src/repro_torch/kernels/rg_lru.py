@@ -27,7 +27,6 @@ from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 MAX_SMEM = 232448        # dynamic shared memory one CTA may use
-SM_SMEM = 233472         # shared memory of one SM; each CTA also holds 1 KB
 TILES = (16, 32)         # channels of a CTA
 STEPS = 64               # time steps of a stage
 IN_FLIGHT = 8 << 20      # bytes of a and b the ring keeps in flight
@@ -64,14 +63,6 @@ def smem_bytes(pl: LruPlan) -> int:
 def n_ctas(pl: LruPlan, B: int, W: int) -> int:
     """One CTA per (batch row, tile of channels)."""
     return B * -(-W // pl.tile)
-
-
-def bytes_in_flight(pl: LruPlan, B: int, W: int, n_sms: int) -> int:
-    """Bytes of a and b that the rings of the CTAs resident at once hold
-    (every stage of a ring in flight when the chains wait on memory)."""
-    per_sm = min(32, SM_SMEM // (smem_bytes(pl) + 1024))
-    return min(n_ctas(pl, B, W), n_sms * per_sm) * pl.stages * \
-        stage_bytes(pl)
 
 
 def plan(B: int, T: int, W: int, n_sms: int,

@@ -175,7 +175,7 @@ def test_plan_ring_fits_shared_memory(B, T, W):
 def test_plan_keeps_the_target_bytes_in_flight(B, T, W, want):
     pl = R.plan(B, T, W, N_SMS)
     assert (pl.tile, pl.steps, pl.stages, pl.tma) == want
-    assert R.bytes_in_flight(pl, B, W, N_SMS) >= R.IN_FLIGHT
+    assert R.n_ctas(pl, B, W) * pl.stages * R.stage_bytes(pl) >= R.IN_FLIGHT
     assert R.n_ctas(pl, B, W) >= N_SMS
 
 
