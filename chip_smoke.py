@@ -17,9 +17,11 @@ and it stops at the first failing phase with a non-zero exit:
    2048) and the recurrentgemma-2b layout (max_len 2304), B=4 slots, G=4
    pages, random caches, holds ``pack_page`` and ``install_pages`` byte
    for byte against their plain PyTorch versions (an install whose slots
-   repeat a slot included: the last page wins), prints the pack's
-   launches per call, and times kernel, plain version and one library
-   call with CUDA events (device time, median of 9 repeats of 20 calls);
+   repeat a slot included: the last page wins), prints both kernels'
+   launches per call (the install must take one), times kernel, plain
+   version and one library call with CUDA events (device time, median of
+   9 repeats of 20 calls) and prints the install's host microseconds per
+   call and its share of the bound;
 3. ``rg_lru_scan`` phase at (B, T, W) = (1, 2100, 2560), the hybrid
    serve prefill, and (4, 2048, 2560): kernel bit-equal to its plain
    float32 loop (``torch.equal``), timed, and printed with its launch
@@ -65,14 +67,21 @@ and it stops at the first failing phase with a non-zero exit:
    tokens of the unpaged engine on the same prompts); the hybrid with
    ``--kv-codec int8`` (fused and unfused) and ``--prefix-share``.  Each
    prints tok/s, TTFT, the spilled bytes' compression ratio and the H2D
-   bytes saved; fused runs must launch pack and install;
+   bytes saved; fused runs must launch pack and install.  The access
+   paths, paged: qwen2-0.5b over ``qdma``, ``verbs`` and ``auto`` and the
+   hybrid over ``auto`` must give the xdma paged run's tokens (each
+   ``[serve]`` line prints its path, and ``auto`` the pages each member
+   took); then a dirty round trip through a verbs-backed ``TieredStore``
+   of qwen2-0.5b pages: pages updated on the card, evicted dirty, read
+   back byte-equal, ``c2h_bytes`` = dirty pages x page size;
 9. reference check: at the smoke size in float32, qwen2-0.5b's and
    recurrentgemma-2b's prefill logits on the card agree with the CPU's
    within 1e-4 (the hybrid prompt of 40 tokens overruns its window of
    32);
 
 Every kernel launch count is zeroed just before each counted run (the
-paged serves, the capacity serves, the Fig-8 sweep) and read just after;
+paged serves over every access path, the capacity serves, the Fig-8
+sweep) and read just after;
 the ``kernels`` line sums them.  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
@@ -178,7 +187,9 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
     entries = [(stack, g) for g in range(G)]
     slots = [2, 0, 3, 1][:G]
     base = rand_leaves(True)
+    pi.install_pages.launches = 0
     got = pi.install_pages(layout, [b.clone() for b in base], entries, slots)
+    install_launches = pi.install_pages.launches
     want = pi.install_pages_torch(layout, [b.clone() for b in base],
                                   entries, slots)
     torch.cuda.synchronize()
@@ -211,7 +222,21 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
                 leaves_t[sp.index].index_copy_(sp.slot_axis, idx[g],
                                                typed[g][sp.index])
 
+    def host_us(fn, calls: int = 20) -> float:
+        """Host microseconds per call: wall time to issue ``calls``
+        back-to-back calls, the card synchronised before, not after."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
     t = {
+        "install_host_us": host_us(
+            lambda: pi.install_pages(layout, leaves_t, entries, slots)),
         "pack_ms": device_time_ms(lambda: pi.pack_page(layout, single)),
         "pack_plain_ms": device_time_ms(
             lambda: pi.pack_page_torch(layout, single)),
@@ -226,6 +251,7 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
     pb = layout.page_bytes
     t.update(page_bytes=pb, pack_err=pack_err, install_err=inst_err,
              pack_launches_per_call=pack_launches,
+             install_launches_per_call=install_launches,
              pack_bound_ms=2 * pb / HBM_BYTES_PER_S * 1e3,
              install_bound_ms=2 * pb * G / HBM_BYTES_PER_S * 1e3)
     print(f"[kernels] {arch} max_len={max_len} B={B} G={G} page={pb}B "
@@ -234,10 +260,14 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
           f"plain_ms={t['pack_plain_ms']:.5f} "
           f"library_ms={t['pack_library_ms']:.5f} "
           f"bound_us={t['pack_bound_ms'] * 1e3:.3f} | "
-          f"install: kernel_ms={t['install_ms']:.5f} "
+          f"install: launches_per_call={install_launches} "
+          f"kernel_ms={t['install_ms']:.6f} "
+          f"host_us_per_call={t['install_host_us']:.2f} "
           f"plain_ms={t['install_plain_ms']:.5f} "
           f"library_ms={t['install_library_ms']:.5f} "
-          f"bound_us={t['install_bound_ms'] * 1e3:.3f}", flush=True)
+          f"bound_ms={t['install_bound_ms']:.6f} "
+          f"share={t['install_bound_ms'] / t['install_ms']:.3f}", flush=True)
+    assert install_launches == 1, install_launches
     return t
 
 
@@ -662,6 +692,100 @@ def serve_phase(arch: str, flags, vocab: int, needs) -> dict:
     return {"result": res, "launches": launches}
 
 
+def access_serve_phase(arch: str, flags, base: dict, paths) -> dict:
+    """Serve ``arch`` paged over each access path of ``paths`` (qdma,
+    verbs, auto), every run counted: the tokens must equal ``base``'s
+    (the xdma paged run's), every request must install through the
+    fused path, and the page kernels must launch.  The ``[serve]`` line
+    prints the path and, for ``auto``, the pages each member took."""
+    from repro_torch.launch import serve
+
+    common = ["--arch", arch, "--requests", "8", "--slots", "4",
+              "--max-new", "16", "--device", "cuda"] + list(flags)
+    out = {}
+    for path in paths:
+        res, launches = counted(lambda: serve.main(
+            common + ["--kv-paging", "--access-path", path]))
+        kv, lat = res["kv"], res["latency"]
+        cold = kv["cold"]
+        extra = ""
+        if path == "auto":
+            extra = (f" placement={cold['placement']} "
+                     f"decisions={len(res['path_decisions'])}")
+        elif path == "verbs":
+            extra = (f" doorbells={cold['qp']['doorbells']} staged_hops="
+                     f"{sum(n['staged_hops'] for n in cold['nodes'])} "
+                     f"coalesced_runs="
+                     f"{sum(n['coalesced_runs'] for n in cold['nodes'])}")
+        elif path == "qdma":
+            extra = f" queues={cold['queues']}"
+        print(f"[serve] {arch} path={path} launches={launches} "
+              f"install={res['install']} "
+              f"tok_per_s={res['tok_per_s']:.2f} "
+              f"ttft_p50_ms={lat['ttft_s']['p50'] * 1e3:.2f} "
+              f"tpot_p50_ms={lat['tpot_s']['p50'] * 1e3:.2f} "
+              f"h2c={kv['h2c_bytes']} c2h={kv['c2h_bytes']}{extra}",
+              flush=True)
+        assert res["access_path"] == path and cold["path"] == path
+        assert res["requests"] == 8 and res["undrained"] == 0, res
+        assert res["install"]["fused"] == 8, res["install"]
+        assert launches["pack_page"] > 0 and \
+            launches["install_pages"] > 0, launches
+        assert res["outputs"] == base["outputs"], \
+            f"{arch}: --access-path {path} changed the tokens"
+        if path == "auto":
+            assert sum(cold["placement"].values()) >= 1, cold["placement"]
+        out[path] = {"tok_per_s": res["tok_per_s"],
+                     "ttft_p50_ms": lat["ttft_s"]["p50"] * 1e3}
+    return out
+
+
+def dirty_round_trip(arch: str = "qwen2-0.5b", max_len: int = 128) -> dict:
+    """A verbs-backed ``TieredStore`` of ``arch``'s KV pages on the card:
+    two resident pages updated on the device (``update_pages``), forced
+    out by two other pages (dirty evictions: C2H, then verbs writes),
+    read back byte-equal from the cold tier and from a slot;
+    ``c2h_bytes`` must be the dirty pages times the page size."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import page_install as pi
+    from repro_torch.models import transformer as T
+    from repro_torch.rmem import TieredStore
+
+    cfg = get_config(arch)
+    pb = pi.page_layout(T.init_cache(cfg, 1, max_len, "meta"),
+                        T.init_cache(cfg, 2, max_len, "meta"), 2).page_bytes
+    rng = np.random.default_rng(pb)
+    old = rng.integers(0, 256, (4, pb), dtype=np.uint8)
+    new = rng.integers(0, 256, (2, pb), dtype=np.uint8)
+    with TieredStore(4, (pb,), dtype="uint8", n_hot_slots=2, path="verbs",
+                     n_channels=2, doorbell_batch=2, device="cuda") as st:
+        for p in range(4):
+            st.write_page(p, old[p])
+        st.ensure([0, 1])
+        st.update_pages({0: new[0], 1: new[1]})
+        assert st.dirty_pages == [0, 1], st.dirty_pages
+        st.ensure([2, 3])                   # evicts the two dirty pages
+        back = [st.read_page(p) for p in (0, 1)]
+        dev = st.ensure([0])[0]
+        torch.cuda.synchronize()
+        s = st.stats()
+    for p in (0, 1):
+        assert np.array_equal(back[p], new[p]), f"page {p} differs"
+    assert torch.equal(dev.cpu(), torch.from_numpy(new[0]))
+    assert s["dirty_evictions"] == 2, s["dirty_evictions"]
+    assert s["c2h_bytes"] == 2 * pb, (s["c2h_bytes"], pb)
+    print(f"[dirty] {arch} max_len={max_len} verbs page={pb}B: 2 pages "
+          f"updated on the card, evicted dirty and read back byte-equal; "
+          f"c2h_bytes={s['c2h_bytes']} (= 2 x page) "
+          f"dirty_evictions={s['dirty_evictions']} "
+          f"clean_evictions={s['clean_evictions']} "
+          f"writeback_bytes_skipped={s['writeback_bytes_skipped']}",
+          flush=True)
+    return s
+
+
 def shared_prompts_unpaged(arch: str, prompt_len: int, max_len: int):
     """Outputs of the unpaged engine on the CLI's ``--prefix-share``
     prompts (seed 0, 8 requests, 16 new tokens, 4 slots): sharing off."""
@@ -831,19 +955,25 @@ def main() -> int:
     page_kernels = ("pack_page", "install_pages")
     qwen = serve_phase("qwen2-0.5b", [], 151936,
                        page_kernels + ("flash_attention",))
+    access_serve_phase("qwen2-0.5b", [], qwen["result"],
+                       ("qdma", "verbs", "auto"))
     codec_serve_phase("qwen2-0.5b", [], qwen["result"],
                       ("bf16", "int8", "share"), 12, 128)
     hybrid_flags = ["--prompt-len", "2100", "--max-len", "2304"]
     hybrid = serve_phase(
         "recurrentgemma-2b", hybrid_flags,
         256000, page_kernels + ("flash_attention", "rg_lru_scan"))
+    access_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
+                       ("auto",))
     codec_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
                       ("int8", "share"), 2100, 2304)
+    dirty_round_trip()
     reference_check("qwen2-0.5b", 12, 32)
     reference_check("recurrentgemma-2b", 40, 64)
 
-    # launches: summed over every counted run (the paged serves, the
-    # codec and prefix-share serves, the Fig-8 sweep), each from 0
+    # launches: summed over every counted run (the paged serves over
+    # every access path, the codec and prefix-share serves, the Fig-8
+    # sweep), each from 0
     launches = LAUNCHES
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
     kernels = [
@@ -857,6 +987,8 @@ def main() -> int:
         {"name": "install_pages", "route": "cuda", "source": PACK_SOURCE,
          "replaces": "src/repro/kernels/page_install.py:355",
          "launches": launches["install_pages"],
+         "launches_per_call": k128["install_launches_per_call"],
+         "host_us_per_call": k128["install_host_us"],
          "max_abs_err": float(k128["install_err"]),
          "ms": k128["install_ms"], "plain_ms": k128["install_plain_ms"],
          "bound_ms": k128["install_bound_ms"], "bound_by": "bytes",

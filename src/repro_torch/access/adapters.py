@@ -1,15 +1,26 @@
-"""``MemoryPath`` adapters over the access stacks.
+"""``MemoryPath`` adapters over the three access stacks.
 
-Twin of ``repro/access/adapters.py`` for this slice: ``XdmaPath`` only —
-static DMA channels (``ChannelPool``), pages in host DRAM, staging
-submitted straight to the channels.  Low fixed setup per descriptor, no
-cross-op coalescing: the raw-bandwidth path.  ``QdmaPath`` and
-``VerbsPath`` are not ported yet.
+Twin of ``repro/access/adapters.py``.  Each adapter owns one access
+mechanism end to end:
+
+* ``XdmaPath``   — static DMA channels (``ChannelPool``): pages in host
+  DRAM, staging submitted straight to the channels.  Low fixed setup per
+  descriptor, no cross-op coalescing — the raw-bandwidth path.
+* ``QdmaPath``   — descriptor queues (``QueueEngine``): same host-DRAM
+  pages, staging flows through a scheduled function queue.  Higher per-op
+  setup (a scheduling round), but the ring coalesces batched
+  submissions — the deep-batch path.
+* ``VerbsPath``  — one-sided verbs onto far-memory nodes
+  (``rmem.RemoteBackend``): doorbell-batched reads/writes of NIC-attached
+  DRAM.  Tiny per-verb setup on a narrower link — the small-transfer
+  path.  Its host<->device staging leg is still plain DMA, so its
+  capabilities carry a separate ``stage_model`` (``h100_host_path``).
 
 Adapters are constructed by the registry (``access.registry``) either
 *page-backed* (``n_pages``/``page_bytes`` given — usable as a cold tier)
 or *stage-only* (``n_pages=0``).  All of them account into the unified
-stats schema and report ``occupancy()``.
+stats schema and report ``occupancy()`` for the selector's contention
+term.
 """
 from __future__ import annotations
 
@@ -21,11 +32,14 @@ import numpy as np
 
 from repro_torch.access.path import (PathCapabilities, TierBackendCompat,
                                      unified_stats)
-from repro_torch.core.analytical import h100_host_path
+from repro_torch.core.analytical import (far_memory_path, h100_host_path,
+                                         qdma_host_path)
 from repro_torch.core.channels import (ChannelPool, CompletionMode, Direction,
                                        Transfer)
+from repro_torch.core.queues import QueueEngine
 from repro_torch.cplane import default_reactor
-from repro_torch.rmem.backend import LocalHostBackend, PendingIO, TierBackend
+from repro_torch.rmem.backend import (LocalHostBackend, PendingIO,
+                                      RemoteBackend, TierBackend)
 
 _BOTH_MODES = (CompletionMode.POLLED, CompletionMode.INTERRUPT)
 
@@ -213,6 +227,102 @@ class XdmaPath(_AdapterBase):
         return {**super().stats(),
                 "channels": {c.name: c.bytes_moved for c in
                              self.pool.channels}}
+
+    def _close_stage(self) -> None:
+        self.pool.close()
+
+
+class QdmaPath(_AdapterBase):
+    """Descriptor-queue DMA: pages in host DRAM, staging scheduled
+    through a ``QueueEngine`` function queue — the QDMA design point.
+    ``device`` is where staged pages land (default ``"cuda"``)."""
+
+    name = "qdma"
+
+    def __init__(self, n_pages: int = 0, page_bytes: int = 0,
+                 n_channels: int = 4, device=None,
+                 chunk_bytes: int = 1 << 22,
+                 mode: CompletionMode = CompletionMode.POLLED,
+                 depth: int = 256):
+        self.pool = ChannelPool(n_channels, device=device,
+                                chunk_bytes=chunk_bytes)
+        self.qdma = QueueEngine(pool=self.pool, owns_pool=True)
+        self.qdma.create_queue("default", depth=depth)
+        self.depth = depth
+        self.mode = mode
+        backend = LocalHostBackend(n_pages, page_bytes) if n_pages else None
+        super().__init__(backend, PathCapabilities(
+            kind="qdma", granularity_bytes=4096, max_inflight=depth,
+            batch_coalescing=True,              # the ring amortizes setup
+            completion_modes=_BOTH_MODES, channels=n_channels,
+            model=qdma_host_path()))
+
+    def create_queue(self, name: str, depth: int = 64, weight: int = 1):
+        return self.qdma.create_queue(name, depth, weight)
+
+    def _submit_stage(self, payload, direction, on_complete, qname):
+        item = self.qdma.submit(qname, payload, direction)
+        item.assigned.wait(30.0)   # scheduler attaches the Transfer
+        return item.transfer
+
+    def occupancy(self) -> float:
+        filled = sum(len(q) for q in self.qdma.queues.values())
+        return min(filled / max(self.depth, 1), 1.0)
+
+    def stats(self) -> dict:
+        return {**super().stats(),
+                "queues": {q.name: {"submitted": q.submitted,
+                                    "completed": q.completed,
+                                    "depth": q.depth}
+                           for q in self.qdma.queues.values()},
+                "channels": {c.name: c.bytes_moved for c in
+                             self.pool.channels}}
+
+    def _close_stage(self) -> None:
+        self.qdma.close()           # owns_pool=True: closes the pool too
+
+
+class VerbsPath(_AdapterBase):
+    """One-sided verbs onto far-memory nodes: pages behind doorbell-
+    batched RDMA-style reads/writes; host<->device staging stays DMA.
+    ``device`` is where staged pages land and where the memory nodes'
+    link hop goes (default ``"cuda"``)."""
+
+    name = "verbs"
+
+    def __init__(self, n_pages: int = 0, page_bytes: int = 0,
+                 n_nodes: int = 1, doorbell_batch: int = 4, nodes=None,
+                 n_channels: int = 2, device=None,
+                 chunk_bytes: int = 1 << 22,
+                 mode: CompletionMode = CompletionMode.POLLED,
+                 node_latency_s: float = 0.0):
+        self.pool = ChannelPool(n_channels, device=device,
+                                chunk_bytes=chunk_bytes)
+        self.mode = mode
+        self.doorbell_batch = doorbell_batch
+        backend = RemoteBackend(n_pages, page_bytes, nodes=nodes,
+                                n_nodes=n_nodes,
+                                doorbell_batch=doorbell_batch,
+                                mode=mode,
+                                node_latency_s=node_latency_s,
+                                device=self.pool.device) \
+            if n_pages else None
+        super().__init__(backend, PathCapabilities(
+            kind="verbs", granularity_bytes=64,      # WQE-inline floor
+            max_inflight=max(doorbell_batch, 1) * 16,
+            batch_coalescing=True,              # the doorbell amortizes setup
+            completion_modes=_BOTH_MODES, channels=1,
+            model=far_memory_path(), stage_model=h100_host_path()))
+
+    def _submit_stage(self, payload, direction, on_complete, qname):
+        return self.pool.submit(payload, direction, mode=self.mode,
+                                on_complete=on_complete)
+
+    def occupancy(self) -> float:
+        if self.backend is None:
+            return super().occupancy()
+        return min(self.backend.qp.outstanding_wrs /
+                   max(self._caps.max_inflight, 1), 1.0)
 
     def _close_stage(self) -> None:
         self.pool.close()

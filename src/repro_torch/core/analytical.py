@@ -16,8 +16,11 @@ curves (Figs 8-18).  The model:
 * ``dir_eff``: C2H outperforms H2C (posted writes vs non-posted reads).
 * contention with a second master multiplies by ``contention_factor``.
 
-The port's host path is ``h100_host_path``; the paper's own FPGA paths
-stay for reference.  No TPU part is modelled here.
+The port's host path is ``h100_host_path``, and ``qdma_host_path`` is
+the same link behind descriptor queues; ``far_memory_path`` is the
+reference's 100 Gb/s RNIC model of NIC-attached memory, which is no
+TPU figure and keeps its constants; the paper's own FPGA paths stay for
+reference.  No TPU part is modelled here.
 """
 from __future__ import annotations
 
@@ -79,6 +82,33 @@ def h100_host_path() -> PathModel:
     """Host DRAM <-> H100 device memory over PCIe, with the pinned H2D
     rate measured on the card as its link ceiling."""
     return PathModel(link_gbps=H100_PINNED_H2D_GBPS)
+
+
+def qdma_host_path() -> PathModel:
+    """Host DRAM <-> device memory through QDMA-style descriptor queues.
+
+    Same link as :func:`h100_host_path`, but transfers flow through
+    per-function descriptor rings drained by a scheduler: a higher fixed
+    setup per op (a scheduling round and a ring doorbell) that the ring
+    *coalesces* across batched submissions.  The selector models this as
+    a larger ``t0`` amortized over the batch: QDMA loses to XDMA on
+    isolated transfers and wins once submissions are deep enough to
+    share the scheduling cost (the paper's §4.1.2 contrast).
+    """
+    return dataclasses.replace(h100_host_path(), t0_us=18.0)
+
+
+def far_memory_path() -> PathModel:
+    """NIC-attached DRAM behind one-sided RDMA verbs (the rmem tier).
+
+    Anchored on a 100 Gb/s RNIC (12.5 GB/s) with the short per-verb
+    setup one-sided ops show on off-path SmartNICs (arXiv:2212.07868):
+    higher single-op efficiency than a DMA descriptor ring, no H2C/C2H
+    asymmetry (both directions are initiator-driven reads/writes of
+    remote DRAM).
+    """
+    return PathModel(link_gbps=12.5, t0_us=3.0, single_eff=0.80,
+                     max_eff=0.92, c2h_boost=1.0, contention_factor=0.90)
 
 
 def doorbell_bandwidth_gbps(m: PathModel, size_bytes: int, batch: int = 1,

@@ -2,9 +2,11 @@
 
 Twin of ``repro/core/engine.py``.  ``MemoryEngine`` keeps the
 host<->device array surface (``write``/``read``) and delegates every
-transfer to a ``MemoryPath`` from the access registry:
+transfer to a ``MemoryPath`` from the access registry: the XDMA channel
+pool, the QDMA queue engine, or a model-driven ``PathSelector``
+(``path="auto"``) that picks per transfer.
 
-    eng = MemoryEngine(n_channels=4, path="xdma", device="cuda")
+    eng = MemoryEngine(n_channels=4, path="qdma", device="cuda")
     dev = eng.write(host_array).wait()   # H2C
     host = eng.read(dev_tensor).wait()   # C2H
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from repro_torch import obs
 from repro_torch.core.channels import CompletionMode, Transfer
 
 
@@ -37,6 +40,15 @@ class MemoryEngine:
         self.mode = mode
         self._closed = False
 
+    # the underlying mechanism's handles, for callers that tune them
+    @property
+    def pool(self):
+        return getattr(self.path, "pool", None)
+
+    @property
+    def qdma(self):
+        return getattr(self.path, "qdma", None)
+
     def write(self, host_arr, on_complete: Optional[Callable] = None,
               qname: str = "default") -> Transfer:
         return self.path.stage_h2c(host_arr, on_complete=on_complete,
@@ -46,6 +58,11 @@ class MemoryEngine:
              qname: str = "default") -> Transfer:
         return self.path.stage_c2h(dev_arr, on_complete=on_complete,
                                    qname=qname)
+
+    def stats(self) -> dict:
+        """The path's unified ``{path, bytes_moved, ops, projected_s,
+        ...}`` schema (mechanism detail nests below)."""
+        return obs.export_stats("engine", self.path.stats())
 
     def close(self) -> None:
         """Idempotent; only closes a path this engine constructed."""

@@ -44,15 +44,46 @@
 // them); a layout with more than 120 takes one launch per 120 leaves.
 // No launch attribute is set: the time is the kernel's own.
 //
-// install: its tables (int64, built on the host, copied to the device in
-// one H2D on the stream) are
-//   per leaf  {dst, page_offset, outer, inner_bytes, width, batch}
+// install: the launch table is a kernel parameter too.  InstallTable
+// (at most kMaxInstallLeaves = 32 leaves of 48 bytes and
+// kMaxInstallPages = 128 pages of 16 bytes, 3,600 bytes in all) is passed
+// by value as a __grid_constant__ parameter, so an install is one launch
+// and nothing else: no pinned host buffer, no H2D copy of a table the
+// kernel would wait for, and no allocation per call (the first version's
+// table crossed H2D on every call).  It holds
+//   per leaf  {dst, page_offset, inner, outer, width, row_blocks,
+//              rows_per_block, first_block}
 //   per page  {page_address, slot}
 // A leaf with its slot axis at position a of a batch shape (d_0..d_n) is
-// viewed as (outer, B, inner_bytes): outer = d_0..d_{a-1}, inner_bytes =
-// d_{a+1}..d_n times the item size.  Byte (o, r) of the page's leaf image
-// lands at dst + (o * B + slot) * inner_bytes + r.
+// viewed as (outer, B, inner): outer = d_0..d_{a-1}, inner = d_{a+1}..d_n
+// times the item size.  Byte (o, r) of the page's leaf image lands at
+// dst + (o * B + slot) * inner + r: every row is contiguous on both sides.
 //
+// The grid is flat: each page owns page_blocks consecutive blocks, and
+// inside a page leaf i owns the blocks from its first_block on, so every
+// leaf gets blocks in proportion to its words (the first version sized
+// a 3-D grid by the largest leaf, which left the small leaves' blocks
+// idle).  A block finds its page by one division and its leaf by a
+// binary search over first_block.  A block copies kInstallBlockWords
+// words: a leaf whose rows hold at least that many is cut into
+// row_blocks blocks per row (a contiguous run inside one row, its row
+// and column from one division per block); a leaf with shorter rows
+// gives each block rows_per_block whole rows, and a word's row comes
+// from a 32-bit division.  Each thread loads kInstallUnroll words
+// before it stores any.  Indices are 32-bit unless a leaf's batch bytes
+// reach 2^31 (page offsets are 64-bit in the table).  The served
+// layouts (3 leaves for qwen2-0.5b, 11 for recurrentgemma-2b) install in
+// one launch for any G up to 128 pages; a layout or a G past the table
+// takes one launch per chunk of leaves and pages.  Pages hold distinct
+// slots (the wrapper keeps only the last page of a slot that repeats),
+// so no two blocks write the same byte.
+//
+// What bounds the install: memory, 2 x page_bytes x G bytes (each staged
+// byte read once, each cache byte written once).  For qwen2-0.5b at
+// max_len 128 and G = 4 that is 12.6 MB, 3.76 us at 3.35 TB/s, so the
+// launch is a large part of the time; at recurrentgemma-2b's max_len
+// 2304 it is 137.9 MB, 41.2 us, where the copy rate decides it.
+
 // Neither kernel allocates or synchronises: both launch on the stream the
 // caller passes, and each entry point returns cudaGetLastError().
 
@@ -62,10 +93,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1024;
 constexpr int kPackUnroll = 4;                       // words per thread
 constexpr int kPackBlockWords = kThreads * kPackUnroll;
 constexpr int kMaxPackLeaves = 120;
+constexpr int kInstallUnroll = 4;                    // words per thread
+constexpr int kInstallBlockWords = kThreads * kInstallUnroll;
+constexpr int kMaxInstallLeaves = 32;
+constexpr int kMaxInstallPages = 128;
+static_assert(kInstallUnroll == kPackUnroll,
+              "a run inside one row is copied by pack_words");
 
 // One leaf of the pack: its source address, its byte offset in the page,
 // its size in bytes, the copy word's width, and its first block of the
@@ -86,6 +122,42 @@ struct PackTable {
 static_assert(sizeof(PackLeaf) == 32, "PackLeaf is 32 bytes");
 static_assert(sizeof(PackTable) + sizeof(void*) <= 4096,
               "the pack's kernel parameters exceed 4,096 bytes");
+
+// One leaf of the install: its batch leaf's address, its byte offset in
+// the page, its row bytes (inner) and rows (outer), the copy word's
+// width, its blocks per row (a row of at least kInstallBlockWords words)
+// or else its whole rows per block, and its first block among one
+// page's blocks.
+struct InstallLeaf {
+  long long dst;
+  long long page_offset;
+  long long inner;
+  int outer;
+  int width;
+  int row_blocks;
+  int rows_per_block;
+  int first_block;
+  int pad;
+};
+
+struct InstallPage {
+  long long addr;   // the staged page's first byte
+  int slot;
+  int pad;
+};
+
+struct InstallTable {
+  int n_leaves;     // leaves in this launch
+  int n_pages;      // pages in this launch
+  int page_blocks;  // blocks per page: the grid is n_pages x page_blocks
+  int batch;        // B, the batch leaves' slot-axis size
+  InstallLeaf leaf[kMaxInstallLeaves];
+  InstallPage page[kMaxInstallPages];
+};
+static_assert(sizeof(InstallLeaf) == 48, "InstallLeaf is 48 bytes");
+static_assert(sizeof(InstallPage) == 16, "InstallPage is 16 bytes");
+static_assert(sizeof(InstallTable) <= 4096,
+              "the install's kernel parameters exceed 4,096 bytes");
 
 // kPackUnroll words of one thread, kThreads apart: all loads, then all
 // stores.  I is the index type (int below 2^31 page bytes).
@@ -108,21 +180,57 @@ __device__ __forceinline__ void pack_words(const uint8_t* __restrict__ src,
   }
 }
 
-template <typename W>
-__device__ __forceinline__ void scatter_rows(const uint8_t* __restrict__ src,
-                                             uint8_t* __restrict__ dst,
-                                             long long outer, long long inner,
-                                             long long batch, long long slot,
-                                             long long start,
-                                             long long stride) {
-  const long long row_words = inner / static_cast<long long>(sizeof(W));
-  const long long n_words = outer * row_words;
+// Whole rows [first_row, first_row + n_words / row_words) of one leaf:
+// the source side is contiguous, a word's destination row comes from one
+// 32-bit division (I = int) per word.  kInstallUnroll words per thread,
+// kThreads apart: all loads, then all stores.
+template <typename W, typename I>
+__device__ __forceinline__ void install_rows(const W* __restrict__ src,
+                                             W* __restrict__ dst,
+                                             I row_words, I first_row,
+                                             I n_words, I batch, I slot) {
+  src += first_row * row_words;
+  W w[kInstallUnroll];
+#pragma unroll
+  for (int u = 0; u < kInstallUnroll; ++u) {
+    const I i = static_cast<I>(u) * kThreads + static_cast<I>(threadIdx.x);
+    if (i < n_words) w[u] = src[i];
+  }
+#pragma unroll
+  for (int u = 0; u < kInstallUnroll; ++u) {
+    const I i = static_cast<I>(u) * kThreads + static_cast<I>(threadIdx.x);
+    if (i < n_words) {
+      const I q = i / row_words;
+      const I col = i - q * row_words;
+      dst[((first_row + q) * batch + slot) * row_words + col] = w[u];
+    }
+  }
+}
+
+// Block lb of one leaf of one page.
+template <typename W, typename I>
+__device__ __forceinline__ void install_block(const InstallLeaf& L,
+                                              const uint8_t* __restrict__ src,
+                                              int batch, int slot, I lb) {
+  const I row_words =
+      static_cast<I>(L.inner / static_cast<long long>(sizeof(W)));
   const W* s = reinterpret_cast<const W*>(src);
-  for (long long i = start; i < n_words; i += stride) {
-    const long long o = i / row_words;
-    const long long r = i - o * row_words;
-    W* row = reinterpret_cast<W*>(dst + (o * batch + slot) * inner);
-    row[r] = s[i];
+  W* d = reinterpret_cast<W*>(L.dst);
+  if (L.row_blocks > 0) {
+    // a run of kInstallBlockWords words inside row o
+    const I o = lb / L.row_blocks;
+    const I c = lb - o * L.row_blocks;
+    pack_words<W, I>(reinterpret_cast<const uint8_t*>(s + o * row_words),
+                     reinterpret_cast<uint8_t*>(
+                         d + (o * batch + slot) * row_words),
+                     row_words,
+                     c * kInstallBlockWords + static_cast<I>(threadIdx.x));
+  } else {
+    const I first_row = lb * L.rows_per_block;
+    I rows = static_cast<I>(L.outer) - first_row;
+    if (rows > L.rows_per_block) rows = L.rows_per_block;
+    install_rows<W, I>(s, d, row_words, first_row, rows * row_words,
+                       static_cast<I>(batch), static_cast<I>(slot));
   }
 }
 
@@ -152,43 +260,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// grid: (blocks, leaves, pages).  Each block strides over one leaf of one
-// page; pages hold distinct slots (the wrapper keeps only the last page of
-// a slot that repeats), so no two blocks write the same byte.
-__global__ void install_pages_kernel(const long long* __restrict__ leaves,
-                                     const long long* __restrict__ pages) {
-  const long long* L = leaves + 6 * blockIdx.y;
-  const long long* P = pages + 2 * blockIdx.z;
-  uint8_t* dst = reinterpret_cast<uint8_t*>(L[0]);
-  const uint8_t* src = reinterpret_cast<const uint8_t*>(P[0]) + L[1];
-  const long long outer = L[2], inner = L[3], width = L[4], batch = L[5];
-  const long long slot = P[1];
-  const long long start =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  switch (width) {
-    case 16:
-      scatter_rows<uint4>(src, dst, outer, inner, batch, slot, start, stride);
-      break;
-    case 8:
-      scatter_rows<uint2>(src, dst, outer, inner, batch, slot, start, stride);
-      break;
-    case 4:
-      scatter_rows<uint32_t>(src, dst, outer, inner, batch, slot, start,
-                             stride);
-      break;
-    default:
-      scatter_rows<uint8_t>(src, dst, outer, inner, batch, slot, start,
-                            stride);
-      break;
+// grid: flat, n_pages x page_blocks blocks; page g owns blocks
+// [g * page_blocks, (g + 1) * page_blocks), and inside them leaf i owns
+// [first_block_i, first_block_{i+1}).
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+    install_pages_kernel(const __grid_constant__ InstallTable t) {
+  const int b = static_cast<int>(blockIdx.x);
+  const int g = b / t.page_blocks;
+  const int r = b - g * t.page_blocks;
+  int lo = 0, hi = t.n_leaves - 1;   // the last leaf whose first block <= r
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].first_block <= r) lo = mid; else hi = mid - 1;
   }
-}
-
-unsigned grid_blocks(long long max_words) {
-  long long b = (max_words + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return static_cast<unsigned>(b);
+  const InstallLeaf& L = t.leaf[lo];
+  const InstallPage& P = t.page[g];
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(P.addr) + L.page_offset;
+  const I lb = static_cast<I>(r - L.first_block);
+  switch (L.width) {
+    case 16: install_block<uint4, I>(L, src, t.batch, P.slot, lb); break;
+    case 8: install_block<uint2, I>(L, src, t.batch, P.slot, lb); break;
+    case 4: install_block<uint32_t, I>(L, src, t.batch, P.slot, lb); break;
+    default: install_block<uint8_t, I>(L, src, t.batch, P.slot, lb); break;
+  }
 }
 
 }  // namespace
@@ -222,15 +317,54 @@ extern "C" int pack_page_launch(const void* table, void* page, int wide,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int install_pages_launch(const void* leaf_table, int n_leaves,
-                                    const void* page_table, int n_pages,
-                                    long long max_words, void* stream) {
-  if (n_leaves < 1 || n_leaves > 65535 || n_pages < 1 || n_pages > 65535)
+// table: an InstallTable in host memory, which the launch copies into
+// the kernel's parameters; wide: a leaf's batch bytes reach 2^31
+// (64-bit indices).  The table is checked against the rule that
+// built it (kernels/page_install.py, install_tables).
+extern "C" int install_pages_launch(const void* table, int wide,
+                                    void* stream) {
+  const InstallTable& t = *static_cast<const InstallTable*>(table);
+  if (t.n_leaves < 1 || t.n_leaves > kMaxInstallLeaves || t.n_pages < 1 ||
+      t.n_pages > kMaxInstallPages || t.batch < 1)
     return cudaErrorInvalidValue;
-  dim3 grid(grid_blocks(max_words), n_leaves, n_pages);
-  install_pages_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(leaf_table),
-      static_cast<const long long*>(page_table));
+  long long first = 0;
+  for (int i = 0; i < t.n_leaves; ++i) {
+    const InstallLeaf& L = t.leaf[i];
+    const int w = L.width;
+    if ((w != 1 && w != 4 && w != 8 && w != 16) || L.inner < w ||
+        L.inner % w || L.outer < 1 || L.first_block != first)
+      return cudaErrorInvalidValue;
+    const long long row_words = L.inner / w;
+    long long blocks;
+    if (row_words >= kInstallBlockWords) {
+      const long long rb =
+          (row_words + kInstallBlockWords - 1) / kInstallBlockWords;
+      if (L.row_blocks != rb || L.rows_per_block != 0)
+        return cudaErrorInvalidValue;
+      blocks = L.outer * rb;
+    } else {
+      const long long rpb = kInstallBlockWords / row_words;
+      if (L.row_blocks != 0 || L.rows_per_block != rpb)
+        return cudaErrorInvalidValue;
+      blocks = (L.outer + rpb - 1) / rpb;
+    }
+    if (!wide && L.inner * L.outer * t.batch > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    first += blocks;
+  }
+  if (first != t.page_blocks || first * t.n_pages > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  for (int g = 0; g < t.n_pages; ++g) {
+    if (t.page[g].slot < 0 || t.page[g].slot >= t.batch)
+      return cudaErrorInvalidValue;
+    for (int h = 0; h < g; ++h)   // blocks run in parallel: one page a slot
+      if (t.page[h].slot == t.page[g].slot) return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(first * t.n_pages);
+  if (wide)
+    install_pages_kernel<long long><<<blocks, kThreads, 0, st>>>(t);
+  else
+    install_pages_kernel<int><<<blocks, kThreads, 0, st>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

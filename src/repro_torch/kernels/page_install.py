@@ -12,10 +12,12 @@ leaf's C-order bytes concatenated in tree-flatten order.
   (``rmem/codec.py``) and are decoded on their device first.
 
 On CUDA tensors both launch the CUDA C++ kernels of
-``csrc/page_install.cu`` on the current stream, or raise: the pack one
-launch per ``MAX_PACK_LEAVES`` non-empty leaves, its leaf table
-(``pack_tables``) passed in the launch's parameters; the install one
-launch; on CPU tensors they run the plain PyTorch versions beside them,
+``csrc/page_install.cu`` on the current stream, or raise, each with its
+launch table passed in the launch's parameters (no H2D, no allocation
+per call): the pack one launch per ``MAX_PACK_LEAVES`` non-empty leaves
+(``pack_tables``), the install one launch per ``MAX_INSTALL_LEAVES``
+leaves and ``MAX_INSTALL_PAGES`` pages (``install_tables``); on CPU
+tensors they run the plain PyTorch versions beside them,
 ``pack_page_torch`` and ``install_pages_torch``.  Nothing falls back from
 the card to the plain version.  Each wrapper counts its kernel launches
 in ``<wrapper>.launches``.
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,11 +59,11 @@ class LeafSpec:
     dtype: str
     slot_axis: Optional[int]
 
-    @property
+    @functools.cached_property
     def itemsize(self) -> int:
         return torch.empty((), dtype=torch_dtype(self.dtype)).element_size()
 
-    @property
+    @functools.cached_property
     def nbytes(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64)) * self.itemsize
 
@@ -78,19 +81,36 @@ class PageLayout:
         its byte offset is aligned to its itemsize.  The CUDA kernel
         installs all of them in one launch, whatever their dtype."""
         groups: Dict[str, List[LeafSpec]] = {}
-        for sp in self.leaves:
-            if sp.slot_axis is None or len(sp.shape) != len(sp.batch_shape):
-                continue
-            if sp.offset % sp.itemsize or sp.nbytes == 0:
-                continue
+        for sp in self.install_rows:
             groups.setdefault(sp.dtype, []).append(sp)
         return groups
+
+    @functools.cached_property
+    def install_rows(self) -> Tuple[LeafSpec, ...]:
+        """The kernel's leaves (``kernel_groups``) in page order, computed
+        once per layout: the install's host side runs on every call."""
+        return tuple(
+            sp for sp in self.leaves
+            if sp.slot_axis is not None
+            and len(sp.shape) == len(sp.batch_shape)
+            and not sp.offset % sp.itemsize and sp.nbytes)
+
+    @functools.cached_property
+    def row_geometry(self) -> Tuple[Tuple[LeafSpec, int, int], ...]:
+        """``(leaf, outer, inner)`` of each kernel leaf: its batch leaf
+        viewed as ``(outer, batch, inner bytes)`` around the slot axis."""
+        out = []
+        for sp in self.install_rows:
+            ax = sp.slot_axis
+            out.append((sp, int(np.prod(sp.batch_shape[:ax], dtype=np.int64)),
+                        int(np.prod(sp.batch_shape[ax + 1:], dtype=np.int64))
+                        * sp.itemsize))
+        return tuple(out)
 
     def fallback_indices(self) -> Tuple[int, ...]:
         """Leaf indices the install kernel skips (installed by plain
         PyTorch on the same device)."""
-        covered = {sp.index for g in self.kernel_groups().values()
-                   for sp in g}
+        covered = {sp.index for sp in self.install_rows}
         return tuple(sp.index for sp in self.leaves
                      if sp.index not in covered)
 
@@ -230,14 +250,6 @@ def _stream_ptr(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _table(rows: Sequence[Sequence[int]], dev: torch.device) -> torch.Tensor:
-    """The install's launch table, rows of int64 laid end to end: built on
-    the host, then one pinned H2D on the current stream (PyTorch keeps the
-    pinned block reserved until that copy has run)."""
-    host = torch.tensor([v for r in rows for v in r], dtype=torch.int64)
-    return host.pin_memory().to(dev, non_blocking=True)
-
-
 # the pack's launch struct, as csrc/page_install.cu declares it
 PACK_THREADS = 256            # kThreads
 PACK_UNROLL = 4               # kPackUnroll: words a thread copies
@@ -282,14 +294,106 @@ def pack_tables(layout: PageLayout, src_ptrs: Sequence[int],
     return tables
 
 
+# the install's launch struct, as csrc/page_install.cu declares it
+INSTALL_UNROLL = 4            # kInstallUnroll: words a thread copies
+INSTALL_BLOCK_WORDS = PACK_THREADS * INSTALL_UNROLL
+MAX_INSTALL_LEAVES = 32       # kMaxInstallLeaves
+MAX_INSTALL_PAGES = 128       # kMaxInstallPages: the table fits 4,096 bytes
+
+
+class InstallLeaf(ctypes.Structure):
+    """``InstallLeaf`` of csrc/page_install.cu."""
+    _fields_ = [("dst", ctypes.c_int64), ("page_offset", ctypes.c_int64),
+                ("inner", ctypes.c_int64), ("outer", ctypes.c_int32),
+                ("width", ctypes.c_int32), ("row_blocks", ctypes.c_int32),
+                ("rows_per_block", ctypes.c_int32),
+                ("first_block", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+class InstallPage(ctypes.Structure):
+    """``InstallPage`` of csrc/page_install.cu."""
+    _fields_ = [("addr", ctypes.c_int64), ("slot", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
+
+class InstallTable(ctypes.Structure):
+    """``InstallTable`` of csrc/page_install.cu, passed to the kernel by
+    value as a ``__grid_constant__`` parameter."""
+    _fields_ = [("n_leaves", ctypes.c_int32), ("n_pages", ctypes.c_int32),
+                ("page_blocks", ctypes.c_int32), ("batch", ctypes.c_int32),
+                ("leaf", InstallLeaf * MAX_INSTALL_LEAVES),
+                ("page", InstallPage * MAX_INSTALL_PAGES)]
+
+
+def install_blocks(inner: int, outer: int, width: int
+                   ) -> Tuple[int, int, int]:
+    """``(row_blocks, rows_per_block, blocks)`` of one leaf: rows of at
+    least ``INSTALL_BLOCK_WORDS`` words are cut into ``row_blocks``
+    blocks each, shorter rows go ``rows_per_block`` whole rows a
+    block."""
+    row_words = inner // width
+    if row_words >= INSTALL_BLOCK_WORDS:
+        rb = -(-row_words // INSTALL_BLOCK_WORDS)
+        return rb, 0, outer * rb
+    rpb = INSTALL_BLOCK_WORDS // row_words
+    return 0, rpb, -(-outer // rpb)
+
+
+def install_tables(layout: PageLayout, dst_ptrs: Sequence[int],
+                   page_addrs: Sequence[int], slots: Sequence[int]
+                   ) -> Tuple[List[InstallTable], bool]:
+    """The install's launches, and whether they need 64-bit indices.
+
+    ``dst_ptrs`` are the batch leaves' addresses (tree-flatten order),
+    ``page_addrs`` the staged pages' first bytes and ``slots`` their
+    slots, which must be distinct.  The leaves of
+    ``layout.kernel_groups()`` go in page-offset order, each with its
+    copy word (``_launch_width``: the widest word dividing its address,
+    its offset in every page and its row bytes) and its blocks
+    (``install_blocks``); one table per ``MAX_INSTALL_LEAVES`` leaves
+    and ``MAX_INSTALL_PAGES`` pages."""
+    if len(set(slots)) != len(slots) or len(slots) != len(page_addrs):
+        raise ValueError(f"install tables want one page per distinct "
+                         f"slot, got slots {list(slots)}")
+    rows, wide = [], False
+    pages_or = _launch_width(*page_addrs)     # the pages' common alignment
+    for sp, outer, inner in layout.row_geometry:
+        if outer >= 2 ** 31:
+            raise ValueError(f"leaf {sp.index}: {outer} rows")
+        dst = int(dst_ptrs[sp.index])
+        w = _launch_width(dst, sp.offset, inner, pages_or)
+        rows.append((dst, sp.offset, inner, outer, w,
+                     *install_blocks(inner, outer, w)))
+        wide |= outer * layout.batch * inner >= 2 ** 31
+    tables = []
+    for c in range(0, len(rows), MAX_INSTALL_LEAVES):
+        chunk = rows[c:c + MAX_INSTALL_LEAVES]
+        for p in range(0, len(page_addrs), MAX_INSTALL_PAGES):
+            pages = list(zip(page_addrs, slots))[p:p + MAX_INSTALL_PAGES]
+            t = InstallTable(n_leaves=len(chunk), n_pages=len(pages),
+                             batch=layout.batch)
+            first = 0
+            for i, (dst, off, inner, outer, w, rb, rpb, nb) in \
+                    enumerate(chunk):
+                t.leaf[i] = InstallLeaf(dst, off, inner, outer, w, rb, rpb,
+                                        first)
+                first += nb
+            t.page_blocks = first
+            for g, (addr, slot) in enumerate(pages):
+                t.page[g] = InstallPage(int(addr), int(slot))
+            tables.append(t)
+    return tables, wide
+
+
 def _kernels() -> ctypes.CDLL:
     lib = build.load("page_install")
     if not getattr(lib, "_typed", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.pack_page_launch.argtypes = [ctypes.POINTER(PackTable), vp,
                                          i32, vp]
         lib.pack_page_launch.restype = i32
-        lib.install_pages_launch.argtypes = [vp, i32, vp, i32, i64, vp]
+        lib.install_pages_launch.argtypes = [ctypes.POINTER(InstallTable),
+                                             i32, vp]
         lib.install_pages_launch.restype = i32
         lib._typed = True
     return lib
@@ -367,31 +471,18 @@ def _install_cuda(layout: PageLayout, batch_leaves, entries, slots,
     # the kernel writes every page at once, so an earlier page for a slot
     # that repeats is dropped here: each slot is written once, by its last
     keep = _last_per_slot(slots)
-    entries = [entries[g] for g in keep]
-    slots = [slots[g] for g in keep]
-    addrs = [buf.data_ptr() + row * layout.page_bytes for buf, row in entries]
-    rows = []
-    max_words = 0
-    for specs in layout.kernel_groups().values():
-        for sp in specs:
-            leaf = batch_leaves[sp.index]
-            ax = sp.slot_axis
-            outer = int(np.prod(sp.batch_shape[:ax], dtype=np.int64))
-            inner = int(np.prod(sp.batch_shape[ax + 1:], dtype=np.int64)) \
-                * sp.itemsize
-            w = _launch_width(leaf.data_ptr(), sp.offset, inner,
-                              *addrs)
-            rows.append((leaf.data_ptr(), sp.offset, outer, inner, w,
-                         layout.batch))
-            max_words = max(max_words, outer * inner // w)
-    if not rows:
+    addrs = [entries[g][0].data_ptr() + entries[g][1] * layout.page_bytes
+             for g in keep]
+    if not layout.install_rows:
         return
-    # one table: six int64 per leaf, then two per page
-    table = _table(rows + list(zip(addrs, slots)), dev)
-    build.check(_kernels().install_pages_launch(
-        table.data_ptr(), len(rows), table.data_ptr() + 6 * 8 * len(rows),
-        len(entries), max_words, _stream_ptr(dev)), "install_pages")
-    install_pages.launches += 1
+    tables, wide = install_tables(layout,
+                                  [l.data_ptr() for l in batch_leaves],
+                                  addrs, [slots[g] for g in keep])
+    for table in tables:
+        build.check(_kernels().install_pages_launch(
+            ctypes.byref(table), int(wide), _stream_ptr(dev)),
+            "install_pages")
+        install_pages.launches += 1
 
 
 def _codec_seg(codec, sp: LeafSpec):
@@ -412,7 +503,9 @@ def install_pages(layout: PageLayout, batch_leaves, pages, slots, *,
 
     ``pages`` takes every form ``_normalize_pages`` does.  A slot may
     repeat; the last page for it wins.  On CUDA the leaves of
-    ``layout.kernel_groups()`` install in one kernel launch; the rest
+    ``layout.kernel_groups()`` install in one kernel launch (one per
+    chunk of ``install_tables``, for a layout or a G past one table);
+    the rest
     (``fallback_indices()``: no slot axis, or an offset not aligned to
     the itemsize) install through the plain version on the same device,
     after it on the same stream.

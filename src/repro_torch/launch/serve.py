@@ -8,11 +8,14 @@ its numbers).  ``--device`` defaults to ``cuda``, which raises without a
 card; ``--device cpu`` runs on the CPU.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b \
-        --requests 8 --max-new 16 [--kv-paging] [--no-overlap] \
-        [--no-fused-install] [--kv-codec none|bf16|int8] \
+        --requests 8 --max-new 16 [--kv-paging] \
+        [--access-path xdma|qdma|verbs|auto] [--kv-node-latency S] \
+        [--no-overlap] [--no-fused-install] [--kv-codec none|bf16|int8] \
         [--prefix-share] [--device cpu --smoke]
 
-``--kv-codec`` and ``--prefix-share`` imply ``--kv-paging``.  With
+``--access-path``, ``--kv-codec`` and ``--prefix-share`` imply
+``--kv-paging`` (over xdma unless a path is named); ``--kv-backend
+local|remote`` is the deprecated spelling of xdma and verbs.  With
 ``--prefix-share`` every prompt opens with one seeded prefix of half its
 length, drawn as the reference draws it, so the same seed gives the
 reference's prompts.
@@ -21,14 +24,17 @@ from __future__ import annotations
 
 import argparse
 import time
+import warnings
 
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.access import PathSelector
 from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.serving.engine import Request, ServeEngine, summarize_requests
+from repro_torch.serving.engine import (_KV_BACKEND_ALIAS, Request,
+                                        ServeEngine, summarize_requests)
 
 __all__ = ["Request", "ServeEngine", "main"]
 
@@ -92,12 +98,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-paging", action="store_true",
                     help="page each slot's prefill KV through a TieredStore")
-    ap.add_argument("--access-path", choices=["xdma"], default=None,
+    ap.add_argument("--access-path",
+                    choices=["xdma", "qdma", "verbs", "auto"], default=None,
                     help="memory-access path for KV paging (implies "
-                         "--kv-paging)")
+                         "--kv-paging); 'auto' = model-driven PathSelector")
+    ap.add_argument("--kv-backend", choices=["local", "remote"],
+                    default=None,
+                    help="DEPRECATED alias of --access-path "
+                         "(local->xdma, remote->verbs)")
     ap.add_argument("--kv-doorbell", type=int, default=4,
-                    help="doorbell batch depth (read by paths that "
-                         "batch doorbells; xdma does not)")
+                    help="doorbell batch depth for the verbs path")
+    ap.add_argument("--kv-node-latency", type=float, default=0.0,
+                    help="modeled far-memory link RTT in seconds, paid "
+                         "once per doorbell on the verbs path")
     ap.add_argument("--no-overlap", action="store_true",
                     help="blocking admission: join every page fetch "
                          "before decoding")
@@ -127,6 +140,12 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     access = args.access_path
+    if args.kv_backend is not None:
+        warnings.warn("--kv-backend is deprecated; use --access-path "
+                      "{xdma,qdma,verbs,auto}", DeprecationWarning,
+                      stacklevel=2)
+        if access is None:
+            access = _KV_BACKEND_ALIAS[args.kv_backend]
     paging = (args.kv_paging or access is not None or
               args.kv_codec != "none" or args.prefix_share)
     if paging and access is None:
@@ -141,6 +160,7 @@ def main(argv=None) -> dict:
                       access_path=access if paging else None,
                       kv_doorbell=args.kv_doorbell,
                       overlap=not args.no_overlap,
+                      kv_node_latency_s=args.kv_node_latency,
                       fused_install=args.fused_install,
                       kv_codec=args.kv_codec,
                       prefix_share=args.prefix_share, device=device)
@@ -182,7 +202,18 @@ def main(argv=None) -> dict:
               "latency": lat_sum,
               "outputs": {r.rid: list(r.out_tokens) for r in served}}
     if eng.pager is not None:
-        result["kv"] = _kv_stats_print(eng.pager, eng.access_path)
+        kv = _kv_stats_print(eng.pager, eng.access_path)
+        sel = eng.pager.path
+        if isinstance(sel, PathSelector):
+            trace = sel.decisions
+            placed = kv["cold"].get("placement", {})
+            print(f"[serve:access-auto] {len(trace)} decisions, "
+                  f"placement={placed}", flush=True)
+            result["path_decisions"] = [
+                {"op": d.op, "nbytes": d.nbytes, "batch": d.batch,
+                 "direction": d.direction, "chosen": d.chosen,
+                 "model_argmin": d.model_argmin} for d in trace]
+        result["kv"] = kv
     eng.close()
     return result
 

@@ -1,18 +1,27 @@
 """Cold-tier backends for the tiered store.
 
-Twin of ``repro/rmem/backend.py`` for this slice: ``PendingIO``, the
-``TierBackend`` protocol and ``LocalHostBackend``.  A ``TierBackend`` is
-where cold pages live; the hot tier (device memory) and the staging
-path are owned by ``TieredStore``; backends only store and load
-fixed-size byte pages and account their tier's traffic.
+Twin of ``repro/rmem/backend.py``.  A ``TierBackend`` is where cold
+pages live — the axis the paper varies: host DRAM over PCIe DMA vs
+NIC-attached DRAM over RDMA-style verbs.  The hot tier (device memory)
+and the staging path are owned by ``TieredStore``; backends only store
+and load fixed-size byte pages and account their tier's traffic.
 
-``LocalHostBackend`` — pages in host RAM: the paper's XDMA pattern;
+``LocalHostBackend`` — pages in host RAM: the paper's XDMA/QDMA pattern;
 cold-tier store/load is a host memcpy and all link cost sits on the
-H2C/C2H leg.  It reports measured seconds plus *projected* seconds on
-its analytical path model (``core/analytical.py::h100_host_path``).
+H2C/C2H leg.
 
-The far-memory ``RemoteBackend`` (verbs onto memory nodes) is not
-ported yet.
+``RemoteBackend`` — pages on one or more ``MemoryNode``s reached through
+a ``QueuePair`` with doorbell batching: the paper's RDMA pattern; every
+store is a one-sided write and every load a one-sided read.
+
+Both report measured seconds plus *projected* seconds on their
+analytical path model (``core/analytical.py``: ``h100_host_path`` and
+``far_memory_path``).  The batched surface (``load_many``/``store_many``
+and the ``*_async`` variants returning ``PendingIO`` handles) is the
+miss pipeline's foundation: ``RemoteBackend`` maps a page set onto read
+or write doorbells (one completion fence per doorbell, node-side
+coalescing into one staged hop), ``LocalHostBackend`` onto a single
+vectorized row gather/scatter.
 """
 from __future__ import annotations
 
@@ -26,10 +35,12 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core.analytical import (PathModel, doorbell_bandwidth_gbps,
-                                         h100_host_path)
-from repro_torch.core.channels import Direction
+                                         far_memory_path, h100_host_path)
+from repro_torch.core.channels import CompletionMode, Direction
 from repro_torch.cplane import Completion, CompletionState, CompletionTimeout
 from repro_torch.faults import injector as _faults
+from repro_torch.rmem.node import AddressMap, MemoryNode
+from repro_torch.rmem.verbs import CompletionQueue, MemoryRegion, QueuePair
 
 
 class PendingIO(Completion):
@@ -371,3 +382,214 @@ class LocalHostBackend(_AccountingMixin):
 
     def close(self) -> None:
         pass
+
+
+class RemoteBackend(_AccountingMixin):
+    """Cold pages on far-memory nodes via one-sided verbs.
+
+    The page address space ``[0, n_pages * page_bytes)`` is striped across
+    the given nodes by an ``AddressMap`` (nodes are created if omitted).  A
+    single staging ``MemoryRegion`` (one slot per page) feeds the QP, so a
+    re-store to the same page before its doorbell fires is plain write
+    combining, never a torn buffer.  ``device`` is where the nodes it
+    creates land their link hop (default ``cuda``).
+    """
+
+    name = "remote"
+
+    def __init__(self, n_pages: int, page_bytes: int,
+                 nodes: Optional[Sequence[MemoryNode]] = None,
+                 n_nodes: int = 1, doorbell_batch: int = 1,
+                 mode: CompletionMode = CompletionMode.POLLED,
+                 node_latency_s: float = 0.0, device=None):
+        if n_pages < 1 or page_bytes < 1:
+            raise ValueError((n_pages, page_bytes))
+        self.n_pages = n_pages
+        self.page_bytes = page_bytes
+        total = n_pages * page_bytes
+        self._own_nodes = nodes is None
+        if nodes is None:
+            per = -(-total // max(n_nodes, 1)) + 4096
+            nodes = [MemoryNode(f"memnode{i}", per, device=device,
+                                latency_s=node_latency_s)
+                     for i in range(n_nodes)]
+        self.amap = AddressMap.striped(list(nodes), total,
+                                       align=min(page_bytes, 4096))
+        self.cq = CompletionQueue(mode)
+        self.qp = QueuePair(self.amap, self.cq, doorbell_batch=doorbell_batch)
+        self._staging = np.zeros((n_pages, page_bytes), np.uint8)
+        self.mr = MemoryRegion(self._staging)
+        self.doorbell_batch = doorbell_batch
+
+    def bind_telemetry(self, reactor, source: str) -> None:
+        """Point both this tier's per-call records AND the QP's doorbell
+        completions at ``source``, so the selector's measured term sees
+        outstanding verbs work as in-flight ops."""
+        super().bind_telemetry(reactor, source)
+        self.qp.bind_telemetry(reactor, source)
+
+    def _check(self, page: int, nbytes: int) -> None:
+        if page < 0 or page >= self.n_pages:
+            raise IndexError(page)
+        if nbytes > self.page_bytes:
+            raise ValueError(f"{nbytes} B > page size {self.page_bytes}")
+
+    def _drain_cq(self) -> None:
+        """Discard accumulated completions.  The batched paths fence on
+        doorbells directly, so without this the signaled-WR completions
+        would pile up in the ring unboundedly (the sync ``load`` drains it
+        as a side effect of ``wait_wr``)."""
+        while self.cq.poll(256):
+            pass
+
+    def store(self, page: int, value: np.ndarray) -> None:
+        flat = np.ascontiguousarray(value).reshape(-1).view(np.uint8)
+        self._check(page, flat.size)
+        t0 = time.perf_counter()
+        self._staging[page, :flat.size] = flat
+        self.qp.post_write(self.mr, page * self.page_bytes,
+                           page * self.page_bytes, self.page_bytes)
+        # doorbell rings at batch depth; flush() is the explicit fence
+        if _faults.ACTIVE:
+            # under injection an unfenced store can die node-side after
+            # this call returns — a deferred error the retry wrapper
+            # (which still holds the value) would never see, turning a
+            # transient into silent loss.  Fence here so the failure
+            # surfaces to whoever can re-store the page.
+            self.qp.flush()
+        self._account(flat.size, time.perf_counter() - t0, is_store=True)
+
+    def load(self, page: int) -> np.ndarray:
+        self._check(page, 0)
+        t0 = time.perf_counter()
+        # conditional fence: flush() is a no-op fast path (that still
+        # surfaces deferred async errors) unless WRs are outstanding
+        self.qp.flush()
+        self.qp.read(self.mr, page * self.page_bytes,
+                     page * self.page_bytes, self.page_bytes)
+        out = self._staging[page].copy()
+        self._account(out.size, time.perf_counter() - t0, is_store=False)
+        return out
+
+    # -- batched surface (doorbell-batched verbs) ------------------------
+    def store_many(self, pages: Sequence[int],
+                   values: Sequence[np.ndarray]) -> None:
+        """Batched stores: writes accumulate into doorbells at the QP's
+        batch depth; like ``store``, the final partial doorbell stays
+        pending for write combining (``flush()`` or a later load fences)."""
+        pages = list(pages)
+        if len(pages) != len(values):
+            raise ValueError(f"{len(pages)} pages vs {len(values)} values")
+        t0 = time.perf_counter()
+        total = 0
+        for p, v in zip(pages, values):
+            flat = np.ascontiguousarray(v).reshape(-1).view(np.uint8)
+            self._check(p, flat.size)
+            self._staging[p, :flat.size] = flat
+            self.qp.post_write(self.mr, p * self.page_bytes,
+                               p * self.page_bytes, self.page_bytes)
+            total += flat.size
+        if _faults.ACTIVE:
+            # same deferred-loss hazard as ``store``: fence the batch so
+            # an injected write failure is raised to the caller, who can
+            # re-issue the whole batch (staging rows are rewritten on
+            # every attempt, so replay is idempotent)
+            self.qp.flush()
+        self._account(total, time.perf_counter() - t0, is_store=True,
+                      n_ops=len(pages))
+
+    def store_many_async(self, pages: Sequence[int],
+                         values: Sequence[np.ndarray]) -> PendingIO:
+        """Batched stores with a completion handle: rings the tail doorbell
+        so the batch can drain, ``wait()`` fences exactly these writes."""
+        pages = list(pages)
+        with self.qp.collect_doorbells() as coll:
+            self.store_many(pages, values)
+            self.qp.ring_doorbell()
+
+        def finalize(timeout: float):
+            coll.wait(timeout)
+            self.qp.raise_deferred()
+            self._drain_cq()
+            return None
+        # reactive handle: readiness propagates from the bells' own
+        # completions, so poll()/wait_any see the batch land without a
+        # blocking fence
+        return PendingIO(finalize, deps=coll.completions())
+
+    def load_many(self, pages: Sequence[int]) -> np.ndarray:
+        return self.load_many_async(pages).wait()
+
+    def load_many_async(self, pages: Sequence[int]) -> PendingIO:
+        """Doorbell-batched reads with completion-carried delivery.
+
+        Reads are posted back-to-back (accumulating into doorbells at the
+        QP's batch depth, coalesced node-side into one staged hop per
+        doorbell) and the tail doorbell is rung immediately; no QP-wide
+        flush — FIFO execution per node already orders these reads after
+        any writes posted earlier on this QP, including same-doorbell
+        writes.  ``wait()`` fences only this call's doorbells, then gathers
+        the landed staging rows.
+        """
+        pages = list(pages)
+        for p in pages:
+            self._check(p, 0)
+        t0 = time.perf_counter()
+        with self.qp.collect_doorbells() as coll:
+            for p in pages:
+                self.qp.post_read(self.mr, p * self.page_bytes,
+                                  p * self.page_bytes, self.page_bytes)
+            self.qp.ring_doorbell()
+        t_issued = time.perf_counter()
+
+        def finalize(timeout: float):
+            if not pages:
+                return np.empty((0, self.page_bytes), np.uint8)
+            t_join = time.perf_counter()
+            coll.wait(timeout)
+            self.qp.raise_deferred()
+            self._drain_cq()
+            out = self._staging[np.asarray(pages, np.int64)]  # row gather
+            # busy time = issue cost + time blocked joining; the caller's
+            # think-time between issue and join (the prefetch overlap win)
+            # is explicitly NOT charged to the tier
+            dt = (t_issued - t0) + (time.perf_counter() - t_join)
+            self._account(out.nbytes, dt, is_store=False, n_ops=len(pages))
+            return out
+        return PendingIO(finalize, deps=coll.completions(),
+                         nbytes=len(pages) * self.page_bytes)
+
+    def flush(self) -> None:
+        self.qp.flush()
+
+    def path_model(self) -> PathModel:
+        return far_memory_path()
+
+    def stats(self) -> dict:
+        s = self._base_stats()
+        s["qp"] = self.qp.stats()
+        s["nodes"] = [n.stats() for n in self.amap.nodes]
+        return s
+
+    def close(self) -> None:
+        try:
+            self.qp.flush()
+        finally:
+            # drop this backend's reactor sources (the QP's — possibly
+            # rebound to an adapter's ':page' name the adapter also
+            # cleans — and the explicitly-owned CQ's)
+            self.qp.close()
+            self.cq.close()
+            if self._own_nodes:
+                for n in self.amap.nodes:
+                    n.close()
+
+
+def make_backend(kind: str, n_pages: int, page_bytes: int,
+                 **kw) -> TierBackend:
+    """Factory used by CLI flags (``--kv-backend local|remote``)."""
+    if kind in ("local", "local-host", "host"):
+        return LocalHostBackend(n_pages, page_bytes)
+    if kind == "remote":
+        return RemoteBackend(n_pages, page_bytes, **kw)
+    raise ValueError(f"unknown tier backend {kind!r}")

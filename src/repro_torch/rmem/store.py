@@ -1,17 +1,22 @@
 """Two-level tiered page store: device hot slots over a pluggable cold tier.
 
-Twin of ``repro/rmem/store.py`` for this slice.  Hot pages live in
-device slots, cold pages wherever the ``TierBackend`` puts them (host
-DRAM behind ``LocalHostBackend``).  The host<->device staging leg flows
-through a ``MemoryEngine`` over the same access path, so one mechanism
-owns both hops.
+Twin of ``repro/rmem/store.py``.  Hot pages live in device slots, cold
+pages wherever the ``TierBackend`` puts them: host DRAM
+(``LocalHostBackend``) or far-memory nodes behind verbs
+(``RemoteBackend``).  The host<->device staging leg flows through a
+``MemoryEngine`` over the same access path, so one mechanism owns both
+hops; with a remote backend a page miss is the paper's full two-hop
+path: node --verbs--> host staging --H2C--> device.
 
 The miss path is an asynchronous, batched pipeline:
 
-* a miss set's cold loads are batched into one ``load_many_async``
-  call (the host tier's vectorized row gather);
+* a miss set's cold loads are batched into ``load_many_async`` calls of
+  the backend's group size (a verbs backend's doorbell depth; the whole
+  miss set for the host tier's vectorized row gather), all issued up
+  front;
 * each group stages to the device as ONE H2C transfer as soon as its
-  bytes land (groups consumed in settle order via ``as_completed``);
+  bytes land (groups consumed in settle order via ``as_completed``),
+  while later groups' cold fetches are still in flight;
 * ``prefetch(pages)`` starts that pipeline without blocking, and
   ``ensure`` joins the in-flight fetch instead of re-issuing it.
 
@@ -21,9 +26,12 @@ A slot landed as part of a staged group keeps a *lazy* reference
 while ``ensure`` materializes the row on first touch (plain indexing
 where the reference ran a jitted ``_device_row``).
 
-Pages are written only through ``write_page(s)`` and ``store_dedup``,
-which store cold and refresh a resident copy, so a device copy is never
-newer than its cold copy: eviction and release move no bytes back.
+*Dirty tracking*: pages loaded from (or stored to) the cold tier are
+clean; only ``update_page(s)`` (a device-side write, H2C into the hot
+slot) and ``mark_dirty`` dirty them.  Evicting or releasing a dirty page
+drains its slot to the host (C2H, counted in ``c2h_bytes``) and stores
+it cold (``dirty_evictions``); a clean page moves zero bytes
+(``clean_evictions``, ``writeback_bytes_skipped``).
 
 Capacity multipliers: an optional per-page **codec** (``rmem/codec.py``)
 splits every page into *logical* bytes (what callers see) and *physical*
@@ -141,10 +149,9 @@ class TieredStore:
         self._clock = 0
         self._last_use = [0] * self.n_hot_slots
         self.h2c_bytes = 0
-        # C2H (device -> host) bytes: written back by dirty evictions,
-        # which need the dirty tracking this store does not have yet, so
-        # every eviction is clean and this stays 0
-        self.c2h_bytes = 0
+        self.c2h_bytes = 0              # dirty write-backs and read_page
+        # miss pipeline state
+        self._dirty: set = set()            # device copy newer than cold
         self._prefetch: Dict[int, Tuple[PendingIO, int]] = {}
         self.evictions = 0
         self.clean_evictions = 0
@@ -176,6 +183,11 @@ class TieredStore:
         self.shared_evictions = 0
         self.cow_copies = 0
         self.dedup_bytes_saved = 0
+
+    # -- cold-tier typed views ------------------------------------------
+    def _to_typed(self, raw: np.ndarray) -> np.ndarray:
+        return raw[:self.page_bytes].view(self._np_dtype) \
+                                    .reshape(self.page_shape)
 
     # -- fault-wrapped cold-tier ops -------------------------------------
     def _account_store(self, page: int, nbytes: int) -> None:
@@ -241,6 +253,9 @@ class TieredStore:
             return self.codec.decode(enc)
         return enc[:self.page_bytes]
 
+    def _load_cold(self, page: int) -> np.ndarray:
+        return self._decode_stored(page, self._load_stored(page))
+
     def _load_many_async(self, group: Sequence[int]) -> PendingIO:
         """Batched cold load, retry-wrapped when a policy is set; with no
         policy the backend's handle passes through untouched."""
@@ -291,6 +306,15 @@ class TieredStore:
         s = self.slot_of_page.get(page)
         return s is not None and self._slot_enc[s]
 
+    def read_page(self, page: int) -> np.ndarray:
+        """Cold-tier view of a page (host copy, typed).  If the page is
+        device-resident its slot is authoritative: drain it (C2H)."""
+        if page < 0 or page >= self.n_pages:
+            raise IndexError(page)
+        if page in self.slot_of_page:
+            return self._drain(self.slot_of_page[page])
+        return self._to_typed(self._load_cold(page))
+
     def _stage_resident(self, items: Sequence[Tuple[int, np.ndarray]]
                         ) -> None:
         """Push host values into resident pages' hot slots as ONE staged
@@ -333,27 +357,81 @@ class TieredStore:
             # overwriting a page that persisted as a shared-base delta is
             # a divergence: it copies out to a standalone page (COW)
             self._store_cold(page, arr.reshape(-1).view(np.uint8))
+            self._dirty.discard(page)
         self._stage_resident([(p, a) for p, a in items
                               if p in self.slot_of_page])
+
+    # -- dirty tracking --------------------------------------------------
+    def mark_dirty(self, page: int) -> None:
+        """Flag a resident page's device copy as newer than its cold
+        copy, so the next eviction/release writes it back."""
+        if page not in self.slot_of_page:
+            raise KeyError(f"page {page} is not resident")
+        self._dirty.add(page)
+
+    def is_dirty(self, page: int) -> bool:
+        return page in self._dirty
+
+    def update_page(self, page: int, value) -> torch.Tensor:
+        """Device-side page update: installs ``value`` into the resident
+        page's hot slot (H2C) and marks it dirty — the cold copy is stale
+        until eviction/release writes it back."""
+        self.update_pages({page: value})
+        return self._slot_array(self.slot_of_page[page])
+
+    def update_pages(self, updates) -> None:
+        """Batched ``update_page``: all pages (each must be resident)
+        share one staged H2C transfer and are marked dirty."""
+        items = []
+        for page, value in updates.items():
+            if page not in self.slot_of_page:
+                raise KeyError(f"page {page} is not resident")
+            items.append((page, np.asarray(value, self._np_dtype)
+                          .reshape(self.page_shape)))
+        self._stage_resident(items)
+        for page, _ in items:
+            self._dirty.add(page)
+
+    def _drain(self, s: int) -> np.ndarray:
+        """Slot ``s``'s page on the host: one C2H, counted."""
+        host = np.asarray(self.engine.read(self._slot_array(s)).wait())
+        self.c2h_bytes += self.page_bytes
+        return host
+
+    def _write_back(self, page: int, s: int) -> None:
+        """Drain a dirty slot and store it cold."""
+        self._store_cold(page, self._drain(s).reshape(-1).view(np.uint8))
 
     # -- residency -------------------------------------------------------
     def _evict(self) -> int:
         s = min(range(self.n_hot_slots), key=lambda i: self._last_use[i])
         old = self.page_in_slot[s]
         if old is not None:
-            # the cold copy is current (see module doc): a clean page,
-            # whose C2H drain and cold store are skipped
             self.evictions += 1
-            self.clean_evictions += 1
-            self.writeback_bytes_skipped += self.page_bytes
             if obs.trace.enabled():
-                obs.instant("tier.evict", page=old)
+                obs.instant("tier.evict", page=old,
+                            dirty=old in self._dirty)
+            if old in self._dirty:
+                self._write_back(old, s)
+                self._dirty.discard(old)
+            else:
+                # clean page: the cold copy is already identical — skip
+                # the C2H drain and the cold store, moving zero bytes
+                self.clean_evictions += 1
+                self.writeback_bytes_skipped += self.page_bytes
             del self.slot_of_page[old]
         self.page_in_slot[s] = None
         self.slots[s] = None
         self._slot_src[s] = None
         self._slot_enc[s] = False
         return s
+
+    def _fetch_depth(self, n_missing: int) -> int:
+        """Cold-load group size, chosen by the backend: a verbs backend
+        (or a selector with a verbs member) takes its doorbell depth,
+        anything else the whole miss set as one vectorized batch."""
+        return max(1, getattr(self.backend, "doorbell_batch", 0)
+                   or n_missing)
 
     def prefetch(self, pages: Sequence[int]) -> List[int]:
         """Start the miss pipeline for ``pages`` without blocking; returns
@@ -366,11 +444,13 @@ class TieredStore:
                     and p not in miss:
                 miss.append(p)
         if miss:
-            # the host tier takes the whole miss set as one batched load
-            with obs.span("tier.prefetch", pages=len(miss)):
-                io = self._load_many_async(miss)
-                for k, p in enumerate(miss):
-                    self._prefetch[p] = (io, k)
+            depth = self._fetch_depth(len(miss))
+            with obs.span("tier.prefetch", pages=len(miss), depth=depth):
+                for i in range(0, len(miss), depth):
+                    group = miss[i:i + depth]
+                    io = self._load_many_async(group)
+                    for k, p in enumerate(group):
+                        self._prefetch[p] = (io, k)
         self.prefetch_issued += len(miss)
         return miss
 
@@ -452,9 +532,11 @@ class TieredStore:
                 ent[1].append(p)
                 ent[2].append(k)
             groups.extend((ps, io, ks) for io, ps, ks in ios.values())
-        if cold:
-            groups.append((cold, self._load_many_async(cold),
-                           list(range(len(cold)))))
+        depth = self._fetch_depth(len(cold))
+        for i in range(0, len(cold), depth):
+            g = cold[i:i + depth]
+            groups.append((g, self._load_many_async(g),
+                           list(range(len(g)))))
         # stage each group as ONE H2C transfer as soon as its cold bytes
         # land; reactive IOs are consumed in settle order
         if groups and all(getattr(io, "reactive", False)
@@ -479,6 +561,7 @@ class TieredStore:
                     assigned.append((p, s))
                     self.page_in_slot[s] = p
                     self.slot_of_page[p] = s
+                    self._dirty.discard(p)  # fresh from cold: clean
                 sel = raw if rows == list(range(len(raw))) else \
                     raw[np.asarray(rows)]
                 if any(p in self._repr for p in group_pages):
@@ -537,11 +620,19 @@ class TieredStore:
                                "miss": len(missing),
                                "prefetch_hits": len(fetched)})
 
-    def release(self, page: int) -> None:
-        """Drop a page's residency (the cold copy is current)."""
+    def release(self, page: int, writeback: Optional[bool] = None) -> None:
+        """Drop a page's residency.
+
+        ``writeback=None`` (default) and ``True`` drain the page to the
+        cold tier *only if it is dirty* — clean pages already match their
+        cold copy, so they move zero bytes.  ``False`` discards the
+        device copy unconditionally (dirty state included)."""
         if page not in self.slot_of_page:
             return
         s = self.slot_of_page.pop(page)
+        if writeback is not False and page in self._dirty:
+            self._write_back(page, s)
+        self._dirty.discard(page)
         self.page_in_slot[s] = None
         self.slots[s] = None
         self._slot_src[s] = None
@@ -665,6 +756,7 @@ class TieredStore:
         else:
             self._put_cold(page, enc)
         self.spill_bytes_logical += self.page_bytes
+        self._dirty.discard(page)
         if page in self.slot_of_page:
             self._stage_resident([(page, arr)])
         return ratio
@@ -696,16 +788,27 @@ class TieredStore:
     def cold_bytes_logical(self) -> int:
         return len(self._phys_used) * self.page_bytes
 
+    @property
+    def resident_pages(self):
+        return sorted(self.slot_of_page)
+
+    @property
+    def dirty_pages(self):
+        return sorted(self._dirty)
+
     # -- accounting ------------------------------------------------------
     def stats(self) -> dict:
         cold = self.backend.stats()
         moved = cold.get("bytes_stored", 0) + cold.get("bytes_loaded", 0)
+        batch = getattr(self.backend, "doorbell_batch", 1)
+        # stores batch up to the doorbell depth; loads amortize by the
+        # observed pages-per-batched-call ratio of the miss pipeline
         load_ops = cold.get("load_ops", 0)
         load_batches = cold.get("load_batches", 0)
         avg_load_batch = load_ops / load_batches if load_batches else 1.0
         # projections rate the physical (stored, moved) page size
         projected = (
-            self.backend.projected_seconds(self.phys_page_bytes, 1)
+            self.backend.projected_seconds(self.phys_page_bytes, batch)
             * cold.get("store_ops", 0)
             + self.backend.projected_seconds(self.phys_page_bytes,
                                              max(avg_load_batch, 1.0))

@@ -1,6 +1,11 @@
 """Batched serving engine: continuous slot-based batching with KV paging.
 
-Twin of ``repro/serving/engine.py`` for one engine over one access path.
+Twin of ``repro/serving/engine.py`` for one engine over one access path:
+``access_path`` names it (``xdma``, ``qdma``, ``verbs`` or ``auto``, the
+model-driven selector over all three; ``kv_backend`` is the deprecated
+spelling, ``local`` for xdma and ``remote`` for verbs), and
+``kv_node_latency_s`` is the modeled far-memory round trip each verbs
+doorbell pays.
 Requests enter a queue; a fixed-slot batch decodes in lockstep (one
 decode step for the whole batch), and freed slots are refilled from the
 queue each step.  With KV paging each admitted slot's prefilled cache is
@@ -29,8 +34,9 @@ against one read-only base page per prefix.  Tokens are unchanged by
 sharing, and by ``bf16`` on a bf16 cache; ``kv_capacity_bytes`` sets the
 store's soft physical-byte budget, which ``kv_free_pages`` reports.
 
-Not in this slice: the admission controller (which reads
-``kv_free_pages`` and ``kv_page_cost``) and the sharded fabric.
+Not ported yet: the admission controller (which reads
+``kv_free_pages`` and ``kv_page_cost``), the sharded fabric and the
+fault wiring (``kv_retry``, ``kv_integrity``).
 """
 from __future__ import annotations
 
@@ -53,6 +59,9 @@ from repro_torch.models import lm
 from repro_torch.models import transformer as T
 from repro_torch.rmem import codec as codecs
 from repro_torch.rmem.store import TieredStore
+
+# the deprecated --kv-backend spellings
+_KV_BACKEND_ALIAS = {"local": "xdma", "remote": "verbs"}
 
 
 @dataclasses.dataclass
@@ -122,14 +131,22 @@ def page_codec_for(cfg, max_len: int, codec: Optional[str]):
 class ServeEngine:
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 256, access_path: Optional[str] = None,
-                 kv_doorbell: int = 4,
+                 kv_backend: Optional[str] = None, kv_doorbell: int = 4,
                  overlap: bool = True, overlap_grace_s: float = 0.002,
+                 kv_node_latency_s: float = 0.0,
                  fused_install: bool = True,
                  kv_codec: str = "none", prefix_share: bool = False,
                  prefix_pages: int = 8,
                  kv_capacity_bytes: Optional[int] = None, device=None):
         """``params`` must already live on ``device`` (default
         ``"cuda"``, which raises without a card)."""
+        if kv_backend is not None:
+            warnings.warn(
+                "ServeEngine(kv_backend=...) is deprecated; use "
+                "access_path='xdma'|'qdma'|'verbs'|'auto'",
+                DeprecationWarning, stacklevel=2)
+            if access_path is None:
+                access_path = _KV_BACKEND_ALIAS[kv_backend]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -181,9 +198,11 @@ class ServeEngine:
             phys_bytes = codec.encoded_bytes if codec is not None \
                 else page_bytes
             n_tier_pages = batch_slots + self.prefix_pages
+            # registry factories drop kwargs their path doesn't take
             apath = create_path(access_path, n_pages=n_tier_pages,
                                 page_bytes=phys_bytes, n_channels=2,
                                 n_nodes=1, doorbell_batch=kv_doorbell,
+                                node_latency_s=kv_node_latency_s,
                                 device=self.device)
             self.pager = TieredStore(
                 n_pages=n_tier_pages, page_shape=(page_bytes,),
@@ -376,8 +395,14 @@ class ServeEngine:
         if slot is not None and self.pager is not None:
             self._pending_install.pop(slot, None)
             self.pager.drop_prefetch(slot)
-            self.pager.release(slot)
-            self.pager.discard_cold(slot)
+            try:
+                self.pager.release(slot, writeback=False)
+            except Exception:
+                pass        # the page is being abandoned either way
+            try:
+                self.pager.discard_cold(slot)
+            except Exception:
+                pass
         obs.async_end("serve.request", req.rid, shed=True)
 
     def _install_ready(self, have_active: bool) -> None:

@@ -27,7 +27,11 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.models.rglru", "repro_torch.kernels.streamcopy",
             "repro_torch.kernels.ops", "repro_torch.quant",
             "repro_torch.rmem.codec", "repro_torch.benchmarks.common",
-            "repro_torch.benchmarks.vmem_stream"} <= set(mods)
+            "repro_torch.benchmarks.vmem_stream",
+            "repro_torch.rmem.verbs", "repro_torch.rmem.node",
+            "repro_torch.rmem.store", "repro_torch.core.queues",
+            "repro_torch.core.descriptors", "repro_torch.access.selector",
+            "repro_torch.access.adapters"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
             "    sys.modules[m] = None\n"
@@ -76,3 +80,20 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         serve.main(["--smoke", "--requests", "1"])
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["qdma", "verbs", "auto"])
+def test_new_paths_default_to_the_card(monkeypatch, name):
+    """The access paths, queue engine and memory nodes default to cuda
+    and raise without a card, as every entry point does."""
+    from repro_torch.access import create_path
+    from repro_torch.core import QueueEngine
+    from repro_torch.rmem import MemoryNode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        create_path(name, n_pages=2, page_bytes=64)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        QueueEngine(n_channels=1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        MemoryNode("n", 64)

@@ -2,8 +2,9 @@
 kernels (interpret mode), byte for byte, on the five cache families of
 ``tests/test_kernels.py`` plus one tree with a leaf that has no slot axis
 and one whose offset is not aligned to its itemsize; and the pack
-kernel's launch tables (struct layout against the CUDA source, each byte
-written once, the served layouts in one launch, long layouts split)."""
+and install kernels' launch tables (struct layout against the CUDA
+source, each byte written once, the served layouts in one launch, long
+layouts and many pages split into counted launches)."""
 import bisect
 import ctypes
 import pathlib
@@ -409,3 +410,259 @@ def test_layout_past_max_leaves_splits_into_launches():
     np.testing.assert_array_equal(page,
                                   P.pack_page_torch(port, leaves).numpy())
     assert (writes == 1).all()
+
+
+# ---------------------------------------------------------------------------
+# the install kernel's launch tables (host side: no card needed)
+# ---------------------------------------------------------------------------
+
+def test_install_table_matches_the_source():
+    assert (_cu_const("kInstallUnroll"), _cu_const("kMaxInstallLeaves"),
+            _cu_const("kMaxInstallPages")) == (
+        P.INSTALL_UNROLL, P.MAX_INSTALL_LEAVES, P.MAX_INSTALL_PAGES)
+    leaf = re.search(r"struct InstallLeaf {(.*?)\n};", CU, re.S).group(1)
+    fields = [("long long", "dst"), ("long long", "page_offset"),
+              ("long long", "inner"), ("int", "outer"), ("int", "width"),
+              ("int", "row_blocks"), ("int", "rows_per_block"),
+              ("int", "first_block"), ("int", "pad")]
+    assert re.findall(r"^\s*(long long|int) (\w+);", leaf, re.M) == fields
+    assert [(n, ctypes.sizeof(t)) for n, t in P.InstallLeaf._fields_] == [
+        (n, 8 if t == "long long" else 4) for t, n in fields]
+    page = re.search(r"struct InstallPage {(.*?)\n};", CU, re.S).group(1)
+    assert re.findall(r"^\s*(long long|int) (\w+);", page, re.M) == [
+        ("long long", "addr"), ("int", "slot"), ("int", "pad")]
+    table = re.search(r"struct InstallTable {(.*?)\n};", CU, re.S).group(1)
+    assert re.findall(r"^\s*(\w+) (\w+(?:\[\w+\])?);", table, re.M) == [
+        ("int", "n_leaves"), ("int", "n_pages"), ("int", "page_blocks"),
+        ("int", "batch"), ("InstallLeaf", "leaf[kMaxInstallLeaves]"),
+        ("InstallPage", "page[kMaxInstallPages]")]
+    assert re.search(r"static_assert\(sizeof\(InstallLeaf\) == 48", CU)
+    assert re.search(r"static_assert\(sizeof\(InstallPage\) == 16", CU)
+    assert re.search(r"static_assert\(sizeof\(InstallTable\) <= 4096", CU)
+    assert ctypes.sizeof(P.InstallLeaf) == 48
+    assert ctypes.sizeof(P.InstallPage) == 16
+    assert P.InstallTable.leaf.offset == 16
+    assert ctypes.sizeof(P.InstallTable) == \
+        16 + 48 * P.MAX_INSTALL_LEAVES + 16 * P.MAX_INSTALL_PAGES <= 4096
+    # the launch checks every leaf against the rule install_tables keeps
+    launch = CU[CU.index('extern "C" int install_pages_launch'):]
+    assert "row_words >= kInstallBlockWords" in launch
+    assert "kInstallBlockWords / row_words" in launch
+
+
+class _Memory:
+    """Host buffers by address, for running a launch table on the CPU."""
+
+    def __init__(self, tensors):
+        self.bufs = [(t.data_ptr(), _bytes_view(t)) for t in tensors]
+
+    def view(self, addr, nbytes):
+        for base, buf in self.bufs:
+            if base <= addr and addr + nbytes <= base + buf.size:
+                return buf[addr - base:addr - base + nbytes]
+        raise AssertionError(f"address {addr:#x}+{nbytes} is in no buffer")
+
+
+def _bytes_view(t):
+    return t.view(-1).view(torch.uint8).numpy()
+
+
+def _emulate_install(table, mem, writes):
+    """The install kernel's index arithmetic in numpy, block by block:
+    page g = b // page_blocks, the leaf by a binary search over the
+    first blocks, then a run inside one row or whole rows.  Adds one to
+    ``writes`` (a dict of per-leaf counters by address) at every byte a
+    block stores."""
+    firsts = [table.leaf[i].first_block for i in range(table.n_leaves)]
+    lane = np.arange(P.PACK_THREADS)
+    B = table.batch
+    for b in range(table.n_pages * table.page_blocks):
+        g, r = divmod(b, table.page_blocks)
+        L = table.leaf[bisect.bisect_right(firsts, r) - 1]
+        pg = table.page[g]
+        w, row_words = L.width, L.inner // L.width
+        src = mem.view(pg.addr + L.page_offset, L.outer * L.inner) \
+            .reshape(-1, w)
+        dst = mem.view(L.dst, L.outer * B * L.inner).reshape(-1, w)
+        lb = r - L.first_block
+        i = np.concatenate([u * P.PACK_THREADS + lane
+                            for u in range(P.INSTALL_UNROLL)])
+        if L.row_blocks:
+            o, c = divmod(lb, L.row_blocks)
+            col = c * P.INSTALL_BLOCK_WORDS + i
+            col = col[col < row_words]
+            s_idx = o * row_words + col
+            d_idx = (o * B + pg.slot) * row_words + col
+        else:
+            first = lb * L.rows_per_block
+            rows = min(L.outer - first, L.rows_per_block)
+            i = i[i < rows * row_words]
+            q, col = np.divmod(i, row_words)
+            s_idx = first * row_words + i
+            d_idx = ((first + q) * B + pg.slot) * row_words + col
+        assert len(np.unique(d_idx)) == len(d_idx)
+        dst[d_idx] = src[s_idx]
+        writes[L.dst].reshape(-1, w)[d_idx] += 1
+
+
+def _ragged(batch):
+    """Rows past one block (a ragged last run), rows of 8, 4 and 1-byte
+    words, slot axes first, inner and last, more rows than one block
+    holds, and pages of a 16-byte multiple (61,328 bytes), so each leaf
+    keeps its own widest word."""
+    return {"a": np.zeros((3, batch, 4100), np.float32),    # 1025 words
+            "b": np.zeros((3000, batch), np.int32),         # 3 blocks
+            "c": np.zeros((2, batch, 3, 2), np.float32),    # width 8
+            "d": np.zeros((batch, 3, 5), ml_dtypes.bfloat16),
+            "e": np.zeros((5, batch, 7), np.int8),          # width 1
+            "f": np.zeros((batch, 15), np.int8)}
+
+
+def _served(arch, max_len, batch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as PT
+    cfg = get_config(arch)
+    return (PT.init_cache(cfg, 1, max_len, "meta"),
+            PT.init_cache(cfg, batch, max_len, "meta"))
+
+
+def _random_bytes(t, rng):
+    _bytes_view(t)[:] = rng.integers(0, 256, t.numel() * t.element_size(),
+                                     dtype=np.uint8)
+    return t
+
+
+@pytest.mark.parametrize("case,B,G", [
+    (("qwen2-0.5b", 128), 4, 4), (("recurrentgemma-2b", 2304), 2, 2),
+    ("ragged", 3, 3)], ids=["qwen2-0.5b-128", "recurrentgemma-2b-2304",
+                            "ragged"])
+def test_install_tables_write_every_byte_once(case, B, G):
+    """The launch tables, run through the kernel's index arithmetic over
+    the real host buffers, give the plain install's bytes; every byte of
+    each page's slot in every kernel leaf is written exactly once, and
+    nothing else is."""
+    if case == "ragged":
+        single, batch = (interop.tree_to_torch(_ragged(1)),
+                         interop.tree_to_torch(_ragged(B)))
+    else:
+        single, batch = _served(*case, B)
+    layout = P.page_layout(single, batch, B)
+    rng = np.random.default_rng(B + G)
+    leaves = [_random_bytes(torch.empty(sp.batch_shape,
+                                        dtype=interop.torch_dtype(sp.dtype)),
+                            rng) for sp in layout.leaves]
+    pages = _random_bytes(torch.empty((G, layout.page_bytes),
+                                      dtype=torch.uint8), rng)
+    slots = list(range(B))[::-1][:G]
+    want = P.install_pages_torch(layout, [l.clone() for l in leaves],
+                                 pages, slots)
+    addrs = [pages.data_ptr() + g * layout.page_bytes for g in range(G)]
+    tables, wide = P.install_tables(layout, [l.data_ptr() for l in leaves],
+                                    addrs, slots)
+    assert len(tables) == 1 and not wide
+    mem = _Memory(leaves + [pages])
+    writes = {l.data_ptr(): np.zeros(l.numel() * l.element_size(), np.uint8)
+              for l in leaves}
+    _emulate_install(tables[0], mem, writes)
+    kernel = {sp.index for g in layout.kernel_groups().values() for sp in g}
+    for sp, got, w in zip(layout.leaves, leaves, want):
+        if sp.index not in kernel:
+            continue
+        np.testing.assert_array_equal(_bytes(got), _bytes(w))
+        mark = np.zeros(sp.batch_shape, np.uint8)
+        idx = [slice(None)] * len(sp.batch_shape)
+        idx[sp.slot_axis] = slots
+        mark[tuple(idx)] = 1
+        cnt = writes[got.data_ptr()].reshape(-1, sp.itemsize)
+        assert (cnt == mark.reshape(-1, 1)).all(), sp.index
+    if case == "ragged":
+        assert layout.page_bytes == 61328 and len(kernel) == 6
+        assert [(L.row_blocks, L.rows_per_block, L.width)
+                for L in tables[0].leaf[:tables[0].n_leaves]] == [
+            (2, 0, 16), (0, 1024, 4), (0, 341, 8), (0, 34, 1),
+            (0, 146, 1), (0, 68, 1)]
+
+
+@pytest.mark.parametrize("arch,max_len,n_leaves", [
+    ("qwen2-0.5b", 128, 3), ("qwen2-0.5b", 2048, 3),
+    ("recurrentgemma-2b", 2304, 11)])
+@pytest.mark.parametrize("B", [4, 128])
+def test_served_layouts_install_in_one_launch(arch, max_len, n_leaves, B):
+    """The layouts chip_smoke.py serves take one install launch for
+    every G from 1 to the batch, with 32-bit indices, and the table's
+    blocks cover every leaf's rows."""
+    single, batch = _served(arch, max_len, B)
+    layout = P.page_layout(single, batch, B)
+    ptrs = [(1 << 36) + (i << 32) for i in range(len(layout.leaves))]
+    for G in sorted({1, 2, B // 2, B}):
+        addrs = [(1 << 44) + g * layout.page_bytes for g in range(G)]
+        tables, wide = P.install_tables(layout, ptrs, addrs, range(G))
+        assert len(tables) == 1 and not wide, G
+        (t,) = tables
+        assert (t.n_leaves, t.n_pages, t.batch) == (n_leaves, G, B)
+        first = 0
+        for i in range(t.n_leaves):
+            L = t.leaf[i]
+            assert L.first_block == first and L.inner % L.width == 0
+            rb, rpb, nb = P.install_blocks(L.inner, L.outer, L.width)
+            assert (L.row_blocks, L.rows_per_block) == (rb, rpb)
+            # each row's words are covered once: runs of a row, or rows
+            covered = (rb * P.INSTALL_BLOCK_WORDS if rb else
+                       rpb * L.inner // L.width)
+            assert covered >= L.inner // L.width
+            first += nb
+        assert t.page_blocks == first
+
+
+def test_many_leaves_and_pages_split_into_counted_launches(monkeypatch):
+    """40 leaves and 130 pages take 2 x 2 launches, each counted on
+    ``install_pages.launches``; run through the kernel's arithmetic they
+    give the plain install's bytes, each written once, and a slot that
+    repeats keeps its last page."""
+    rng = np.random.default_rng(5)
+    B = 131
+    single = {f"l{i:02d}": np.zeros((2, 1, 3 + i % 5), np.float32)
+              for i in range(40)}
+    batch = {k: np.zeros((2, B, v.shape[2]), np.float32)
+             for k, v in single.items()}
+    layout = P.page_layout(interop.tree_to_torch(single),
+                           interop.tree_to_torch(batch), B)
+    leaves = [_random_bytes(torch.empty(sp.batch_shape), rng)
+              for sp in layout.leaves]
+    pages = _random_bytes(torch.empty((131, layout.page_bytes),
+                                      dtype=torch.uint8), rng)
+    slots = list(range(130)) + [7]            # page 7 loses to page 130
+    want = P.install_pages_torch(layout, [l.clone() for l in leaves],
+                                 pages, slots)
+    mem = _Memory(leaves + [pages])
+    writes = {l.data_ptr(): np.zeros(l.numel() * 4, np.uint8)
+              for l in leaves}
+    launched = []
+
+    class _Lib:
+        @staticmethod
+        def install_pages_launch(table_ref, wide, stream):
+            launched.append(table_ref._obj)
+            _emulate_install(table_ref._obj, mem, writes)
+            return 0
+
+    monkeypatch.setattr(P, "_kernels", lambda: _Lib)
+    monkeypatch.setattr(P, "_stream_ptr", lambda dev: None)
+    P.install_pages.launches = 0
+    P._install_cuda(layout, leaves, [(pages, g) for g in range(131)],
+                    slots, torch.device("cpu"))
+    assert P.install_pages.launches == len(launched) == 4
+    assert [(t.n_leaves, t.n_pages) for t in launched] == [
+        (32, 128), (32, 2), (8, 128), (8, 2)]
+    for got, w in zip(leaves, want):
+        np.testing.assert_array_equal(_bytes(got), _bytes(w))
+    for w in writes.values():
+        cnt = w.reshape(2, B, -1)
+        assert (cnt[:, :130] == 1).all() and (cnt[:, 130:] == 0).all()
+
+
+def test_install_tables_refuse_repeated_slots():
+    single, batch = _served("qwen2-0.5b", 128, 4)
+    layout = P.page_layout(single, batch, 4)
+    with pytest.raises(ValueError, match="distinct"):
+        P.install_tables(layout, [1 << 36] * 3, [1 << 40, 1 << 41], [1, 1])

@@ -280,3 +280,77 @@ def test_cli_capacity_modes_match_reference(monkeypatch, cli_model, mode):
                 "spill_bytes_logical", "spill_bytes_physical",
                 "shared_pages", "dedup_bytes_saved", "cow_copies"):
         assert got["kv"][key] == want["kv"][key], key
+
+
+# ---------------------------------------------------------------------------
+# the access paths: qdma, verbs and the model-driven auto selector
+# ---------------------------------------------------------------------------
+
+def _keys(d):
+    """The key set of a nested dict, level by level (``placement`` maps
+    the members the selector chose, which follow each package's own
+    models: its keys are left out, its page count is compared)."""
+    return {k: (None if k == "placement" else _keys(v))
+            if isinstance(v, dict) else None for k, v in d.items()}
+
+
+@pytest.mark.parametrize("path", ["qdma", "verbs", "auto"])
+def test_cli_access_paths_match_reference(monkeypatch, capsys, cli_model,
+                                          path):
+    """``--kv-paging --access-path qdma|verbs|auto`` on both archs: the
+    reference's tokens (its float32 weights swapped into both) and its
+    result key set at every level, the path's own stats included."""
+    arch, cfg, pcfg, params, pparams = cli_model
+    monkeypatch.setattr(ref_serve, "reduce_for_smoke", lambda c: cfg)
+    monkeypatch.setattr(ref_serve.T, "tree_init",
+                        lambda defs, c, key: params)
+    monkeypatch.setattr(port_serve, "reduce_for_smoke", lambda c: pcfg)
+    monkeypatch.setattr(port_serve.T, "tree_init",
+                        lambda defs, c, seed, device: pparams)
+    flags = ["--arch", arch, "--smoke", "--requests", "3", "--max-new",
+             "4", "--kv-paging", "--access-path", path] + CLI_ARCHS[arch]
+    want = ref_serve.main(flags)
+    capsys.readouterr()
+    got = port_serve.main(flags + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"[serve:kv-paging] path={path} " in out
+    assert got["outputs"] == want["outputs"]
+    assert got["install"] == want["install"]
+    assert got["access_path"] == path
+    assert _keys(got) == _keys(want)
+    cold, rcold = got["kv"]["cold"], want["kv"]["cold"]
+    assert cold["path"] == rcold["path"] == path
+    if path == "verbs":
+        assert cold["qp"]["wrs_posted"] == rcold["qp"]["wrs_posted"]
+        assert [n["staged_hops"] for n in cold["nodes"]] == \
+            [n["staged_hops"] for n in rcold["nodes"]]
+    if path == "qdma":
+        assert cold["queues"] == rcold["queues"]
+    if path == "auto":
+        assert "[serve:access-auto]" in out
+        assert sum(cold["placement"].values()) == \
+            sum(rcold["placement"].values())
+        assert len(got["path_decisions"]) == len(want["path_decisions"])
+        assert all(d["chosen"] == d["model_argmin"]
+                   for d in got["path_decisions"])
+    for k in ("h2c_bytes", "c2h_bytes", "evictions", "clean_evictions",
+              "dirty_evictions", "page_bytes"):
+        assert got["kv"][k] == want["kv"][k], k
+
+
+def test_kv_backend_alias_and_node_latency(capsys):
+    flags = ["--smoke", "--requests", "2", "--max-new", "3", "--device",
+             "cpu"]
+    with pytest.warns(DeprecationWarning, match="--kv-backend"):
+        got = port_serve.main(flags + ["--kv-backend", "remote",
+                                       "--kv-node-latency", "0.001"])
+    assert got["access_path"] == "verbs"
+    assert "[serve:kv-paging] path=verbs " in capsys.readouterr().out
+    plain = port_serve.main(flags)
+    assert got["outputs"] == plain["outputs"]
+    with pytest.warns(DeprecationWarning, match="kv_backend"):
+        eng = ServeEngine(port_reduce(port_config("qwen2-0.5b")), {},
+                          batch_slots=2, max_len=32, kv_backend="local",
+                          device="cpu")
+    assert eng.access_path == "xdma"
+    eng.close()
