@@ -13,8 +13,9 @@ which the node thread synchronises) and a host copy with
 *coalesced*: the whole run is gathered into a single staged transfer,
 so a doorbell of N batched reads or writes pays one hop instead of N
 (``staged_hops`` and ``coalesced_runs`` count them as the reference
-does).  The reference's fault-injection hooks are not ported yet: they
-come with the fabric and fault wiring.
+does).  The reference's fault-injection hooks, fault scopes and fabric
+membership epochs are not ported yet: they come with the fabric and
+fault wiring.
 
 ``AddressMap`` is the SimBricks-memswitch routing table: ordered
 ``(vaddr_start, vaddr_end, node, phys_start)`` ranges; an access spanning a
@@ -23,7 +24,6 @@ range boundary is split across nodes, exactly like the exemplar's
 """
 from __future__ import annotations
 
-import itertools
 import queue
 import threading
 import time
@@ -40,11 +40,6 @@ from repro_torch.rmem.verbs import OpCode, WorkRequest, _Doorbell
 class MemoryNode:
     """One far-memory server: byte pool + WR-executing worker thread."""
 
-    # fault-injection scope ids: names collide across backends (every
-    # single-node RemoteBackend calls its node "memnode0"), so scopes
-    # carry a process-unique suffix
-    _scope_ids = itertools.count()
-
     def __init__(self, name: str, capacity_bytes: int, device=None,
                  latency_s: float = 0.0):
         """``latency_s`` models the link round trip the container cannot
@@ -59,10 +54,8 @@ class MemoryNode:
         if latency_s < 0:
             raise ValueError(f"latency_s must be >= 0, got {latency_s}")
         self.name = name
-        self.fault_scope = f"{name}#{next(MemoryNode._scope_ids)}"
         self.capacity_bytes = capacity_bytes
         self.latency_s = latency_s
-        self.epoch = 0                      # fabric membership epoch
         self.device = resolve_device(device)
         self.stream = torch.cuda.Stream(device=self.device) \
             if self.device.type == "cuda" else None
@@ -101,17 +94,6 @@ class MemoryNode:
         Callers own the invariant that no live region remains — e.g. a
         checkpoint node between retention epochs."""
         self._brk = 0
-
-    def set_epoch(self, epoch: int) -> None:
-        """Advance this node's view of the fabric membership epoch.
-
-        Epochs are monotonic — a decrease means a stale controller is
-        trying to roll the membership back, which is exactly the split-
-        brain the epoch exists to detect, so it raises."""
-        if epoch < self.epoch:
-            raise ValueError(f"{self.name}: epoch must be monotonic "
-                             f"({epoch} < {self.epoch})")
-        self.epoch = epoch
 
     # -- WR execution ----------------------------------------------------
     def execute(self, wrs: Sequence[WorkRequest], bell: _Doorbell) -> None:
@@ -257,29 +239,12 @@ class MapEntry:
 
 
 class AddressMap:
-    """Ordered virtual->physical routing table over memory nodes.
-
-    Carries the fabric membership ``epoch``: the sharded fabric stamps
-    every membership change (failure, ring flip) down into each
-    member's map and nodes via ``set_epoch``, so any layer holding a
-    routing view can compare epochs and detect that it is stale.
-    """
+    """Ordered virtual->physical routing table over memory nodes."""
 
     def __init__(self, entries: Sequence[MapEntry] = ()):
         self.entries: List[MapEntry] = []
-        self.epoch = 0
         for e in entries:
             self.add_range(e.vaddr_start, e.vaddr_end, e.node, e.phys_start)
-
-    def set_epoch(self, epoch: int) -> None:
-        """Advance the membership epoch (monotonic) and stamp it onto
-        every node this map routes to."""
-        if epoch < self.epoch:
-            raise ValueError(f"epoch must be monotonic "
-                             f"({epoch} < {self.epoch})")
-        self.epoch = epoch
-        for node in self.nodes:
-            node.set_epoch(epoch)
 
     def add_range(self, vaddr_start: int, vaddr_end: int, node: MemoryNode,
                   phys_start: int = 0) -> MapEntry:

@@ -4,7 +4,8 @@ kernels (interpret mode), byte for byte, on the five cache families of
 and one whose offset is not aligned to its itemsize; and the pack
 and install kernels' launch tables (struct layout against the CUDA
 source, each byte written once, the served layouts in one launch, long
-layouts and many pages split into counted launches)."""
+layouts and many pages split into counted launches), and the install
+timer of ``benchmarks/install_host.py`` on the plain version."""
 import bisect
 import ctypes
 import pathlib
@@ -666,3 +667,19 @@ def test_install_tables_refuse_repeated_slots():
     layout = P.page_layout(single, batch, 4)
     with pytest.raises(ValueError, match="distinct"):
         P.install_tables(layout, [1 << 36] * 3, [1 << 40, 1 << 41], [1, 1])
+
+
+def test_install_host_timer_checks_and_times_the_plain_install(capsys):
+    from repro_torch.benchmarks import install_host
+    rows = install_host.main(["--device", "cpu", "--quick", "--rounds", "2"])
+    assert [(r["arch"], r["max_len"]) for r in rows] == [("qwen2-0.5b", 128)]
+    r = rows[0]
+    assert r["launches_per_call"] == 0 and r["kernel_ms"] is None
+    assert 0 < r["host_us_min"] <= r["host_us_per_call"] <= r["host_us_max"]
+    assert "kernel_ms=not measured" in capsys.readouterr().out
+
+
+def test_install_host_timer_refuses_a_second_checkout(tmp_path):
+    from repro_torch.benchmarks import install_host
+    with pytest.raises(SystemExit, match="already imported"):
+        install_host.main(["--src", str(tmp_path), "--device", "cpu"])
