@@ -52,7 +52,9 @@ and it stops at the first failing phase with a non-zero exit:
 6. codec check: the device decode of a page equals the numpy decode for
    int8 and bf16 at both archs' serve layouts (and qwen2-0.5b's in
    float32);
-7. measures the pinned host->device copy rate;
+7. measures the pinned host->device copy rate and the device-to-device
+   copy rate and small-copy latency (the anchors of ``h100_host_path``
+   and ``h100_d2d_path``, ``repro_torch/benchmarks/common.py``);
 8. serve phases, each through ``repro_torch.launch.serve.main``:
    full-width qwen2-0.5b (8 requests of 12 tokens on 4 slots) and
    full-width recurrentgemma-2b (8 requests of 2100 tokens on 4 slots,
@@ -74,14 +76,25 @@ and it stops at the first failing phase with a non-zero exit:
    took); then a dirty round trip through a verbs-backed ``TieredStore``
    of qwen2-0.5b pages: pages updated on the card, evicted dirty, read
    back byte-equal, ``c2h_bytes`` = dirty pages x page size;
-9. reference check: at the smoke size in float32, qwen2-0.5b's and
+9. bench phase: ``repro_torch.benchmarks.run --quick`` on the card (the
+   paper's channel, contention, completion, RDMA-analogue, far-memory,
+   overlap and install benchmarks; far-memory's path-selection sweep and
+   full-width qwen2-0.5b serves over every access path, with their JSON
+   under ``chiprun_out/bench``), then the kernel tour
+   (``repro_torch.examples.kernels``) and the serving example
+   (full-width recurrentgemma-2b), each counted.  Every byte check of a
+   round trip raises inside the modules; held here are install parity,
+   overlap ``bit_exact``, ``all_match_model``, every access path giving
+   the verbs run's tokens, clean evictions moving 0 bytes and dirty ones
+   exactly their pages' bytes.  Speed ratios are printed, not held;
+10. reference check: at the smoke size in float32, qwen2-0.5b's and
    recurrentgemma-2b's prefill logits on the card agree with the CPU's
    within 1e-4 (the hybrid prompt of 40 tokens overruns its window of
    32);
 
 Every kernel launch count is zeroed just before each counted run (the
 paged serves over every access path, the capacity serves, the Fig-8
-sweep) and read just after;
+sweep, the bench phase's benchmarks and examples) and read just after;
 the ``kernels`` line sums them.  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
@@ -89,8 +102,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -110,14 +121,6 @@ def device_time_ms(fn, calls: int = 20, repeats: int = 9,
     from repro_torch.benchmarks.common import time_call
     return time_call(fn, repeats=repeats, warmup=warmup, calls=calls,
                      device="cuda") * 1e3
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip()
 
 
 def ptxas_summary(log: str):
@@ -609,22 +612,6 @@ def codec_decode_check() -> None:
                   f"device decode byte-equal to numpy", flush=True)
 
 
-def pinned_h2d_gbps(nbytes: int = 64 << 20, repeats: int = 10) -> float:
-    import torch
-    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
-    rates = []
-    for _ in range(repeats + 2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        dev.copy_(host, non_blocking=True)
-        end.record()
-        end.synchronize()
-        rates.append(nbytes / (start.elapsed_time(end) * 1e-3) / 1e9)
-    return statistics.median(rates[2:])
-
-
 def _counters():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import page_install as pi
@@ -869,6 +856,72 @@ def codec_serve_phase(arch: str, flags, base: dict, modes,
     return results
 
 
+def bench_phase() -> dict:
+    """This slice's path: ``repro_torch.benchmarks.run --quick`` on the
+    card (every module; far-memory's path-selection sweep and serves and
+    the install bench with their JSON written under ``chiprun_out/bench``),
+    then the kernel tour and the serving example, each run counted.  Any
+    module that raises (every byte check of a round trip raises) exits
+    non-zero.  Held here: install parity, overlap ``bit_exact``,
+    ``all_match_model``, every access path giving the verbs run's tokens,
+    clean evictions moving 0 bytes and a dirty eviction writing exactly
+    the dirty pages' bytes.  Speed ratios (the reference's 1.5x install
+    gate, overlap ``ok``) are printed, not held."""
+    from repro_torch.benchmarks import far_memory
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import kernels as tour
+    from repro_torch.examples import serve_requests
+
+    out = os.path.join(ROOT, "chiprun_out", "bench")
+    os.makedirs(out, exist_ok=True)
+    res, launches = counted(lambda: bench_run.main(
+        ["--quick", "--device", "cuda",
+         "--json", os.path.join(out, "BENCH_miss_pipeline.json"),
+         "--select-json", os.path.join(out, "BENCH_path_select.json"),
+         "--install-json", os.path.join(out, "BENCH_install_path.json")]))
+    print(f"[bench] benchmarks.run --quick launches={launches}", flush=True)
+    assert all(launches[n] > 0 for n in ("pack_page", "install_pages",
+                                         "flash_attention", "stream_copy")), \
+        launches
+    gate = res["install_path"]["gate"]
+    assert gate["parity"] is True, gate
+    ov = res["serve_overlap"]["overlap"]
+    assert ov["bit_exact"] is True and ov["undrained"] == 0, ov
+    fm = res["farmem_tier_sweep"]
+    assert fm["path_select"]["all_match_model"] is True, fm["path_select"]
+    serve = fm["serve"]
+    assert serve["auto_bit_exact"] is True, serve
+    for r in fm["dirty_sweep"]:
+        dirty = r["evictions"] - r["clean_evictions"]
+        assert dirty == round(r["dirty_ratio"] * r["evictions"]), r
+        assert r["writeback_bytes"] == r["c2h_bytes"] == \
+            dirty * far_memory.DIRTY_PAGE_BYTES, r
+    print(f"[bench] held: install parity, overlap bit_exact, "
+          f"all_match_model, every path gives verbs' tokens, "
+          f"{len(fm['dirty_sweep'])} eviction rows (clean 0 B, dirty = "
+          f"pages x {far_memory.DIRTY_PAGE_BYTES} B)", flush=True)
+    print(f"[bench] not held: install depth4_speedup="
+          f"{gate['depth4_speedup']:.2f}x (reference gate 1.5x) "
+          f"overlap speedup={ov['speedup']:.2f}x ok={ov['ok']} "
+          f"miss speedups=" + ",".join(
+              f"{r['backend']}/db{r['doorbell']}:{r['speedup']:.2f}x"
+              for r in fm["miss_pipeline"]["rows"]) +
+          " serve tok_per_s=" + ",".join(
+              f"{p}:{serve[p]['tok_per_s']:.1f}"
+              for p in far_memory.PATH_NAMES + ("auto",)), flush=True)
+    _, tl = counted(lambda: tour.main(["--device", "cuda"]))
+    print(f"[bench] kernel tour launches={tl}", flush=True)
+    assert all(tl[n] > 0 for n in ("flash_attention", "stream_copy",
+                                   "rg_lru_scan")), tl
+    outs, sl = counted(lambda: serve_requests.main(["--device", "cuda"]))
+    print(f"[bench] serve_requests (full-width recurrentgemma-2b) "
+          f"launches={sl}", flush=True)
+    assert sorted(outs) == list(range(10)) and all(
+        len(v) == 12 for v in outs.values()), outs
+    assert sl["flash_attention"] > 0 and sl["rg_lru_scan"] > 0, sl
+    return res
+
+
 def reference_check(arch: str, prompt_len: int, max_len: int) -> float:
     """Smoke-size float32 prefill on the card vs on the CPU."""
     import dataclasses
@@ -909,6 +962,9 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    from repro_torch.benchmarks.common import (card_line, d2d_copy_gbps,
+                                               d2d_copy_latency_us,
+                                               pinned_h2d_gbps)
     from repro_torch.kernels import build
 
     # float32 products in full float32 on both sides of every check
@@ -950,8 +1006,11 @@ def main() -> int:
     sc = stream_copy_phase(65536, 1024, [(1024, 2), (1024, 1), (1024, 4),
                                          (256, 2)])
     codec_decode_check()
-    gbps = pinned_h2d_gbps()
-    print(f"[h2d] pinned host->device 64 MiB: {gbps} GB/s", flush=True)
+    print(f"[h2d] pinned host->device 64 MiB: {pinned_h2d_gbps()} GB/s",
+          flush=True)
+    print(f"[d2d] copy_ on the card 256 MiB: {d2d_copy_gbps()} GB/s; "
+          f"4 KiB copy_ + synchronize: {d2d_copy_latency_us()} us "
+          f"(host)", flush=True)
     page_kernels = ("pack_page", "install_pages")
     qwen = serve_phase("qwen2-0.5b", [], 151936,
                        page_kernels + ("flash_attention",))
@@ -968,12 +1027,13 @@ def main() -> int:
     codec_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
                       ("int8", "share"), 2100, 2304)
     dirty_round_trip()
+    bench_phase()
     reference_check("qwen2-0.5b", 12, 32)
     reference_check("recurrentgemma-2b", 40, 64)
 
     # launches: summed over every counted run (the paged serves over
     # every access path, the codec and prefix-share serves, the Fig-8
-    # sweep), each from 0
+    # sweep, the benchmarks and examples of the bench phase), each from 0
     launches = LAUNCHES
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
     kernels = [

@@ -17,10 +17,14 @@ curves (Figs 8-18).  The model:
 * contention with a second master multiplies by ``contention_factor``.
 
 The port's host path is ``h100_host_path``, and ``qdma_host_path`` is
-the same link behind descriptor queues; ``far_memory_path`` is the
-reference's 100 Gb/s RNIC model of NIC-attached memory, which is no
-TPU figure and keeps its constants; the paper's own FPGA paths stay for
-reference.  No TPU part is modelled here.
+the same link behind descriptor queues; ``h100_d2d_path`` is the copy
+between two allocations in the card's memory, the one device<->device
+transfer a one-card machine has (the stand-in for the reference's
+chip<->chip ``tpu_ici_path``); ``far_memory_path`` is the reference's
+100 Gb/s RNIC model of NIC-attached memory, which is no TPU figure and
+keeps its constants; the paper's own FPGA paths stay for reference.
+``project`` carries a measurement's fraction of its ceiling onto
+another path.  No TPU part is modelled here.
 """
 from __future__ import annotations
 
@@ -29,10 +33,20 @@ from dataclasses import dataclass
 
 from repro_torch.core.channels import Direction
 
-# Pinned host->device copy rate that ``chip_smoke.py`` measured on an
-# NVIDIA H100 80GB HBM3 (power limit 700.00 W): one 64 MiB copy, median
-# of 10.  The link ceiling of ``h100_host_path``.
+# Pinned host->device copy rate (``benchmarks/common.py::
+# pinned_h2d_gbps``: one 64 MiB copy, median of 10), as ``chip_smoke.py``
+# printed it on an NVIDIA H100 80GB HBM3 (power limit 700.00 W).  The
+# link ceiling of ``h100_host_path``.
 H100_PINNED_H2D_GBPS = 51.954
+
+# Device-to-device copy on the same card (``benchmarks/common.py``:
+# ``d2d_copy_gbps``, one 256 MiB ``copy_`` between two allocations, CUDA
+# events, median of 10; ``d2d_copy_latency_us``, host wall time of one
+# 4 KiB ``copy_`` and a synchronize, median of 50), measured on an
+# NVIDIA H100 80GB HBM3 (power limit 700.00 W).  The ceiling and the
+# per-op setup of ``h100_d2d_path``.
+H100_D2D_COPY_GBPS = 1453.202
+H100_D2D_T0_US = 11.945
 
 
 @dataclass(frozen=True)
@@ -84,6 +98,17 @@ def h100_host_path() -> PathModel:
     return PathModel(link_gbps=H100_PINNED_H2D_GBPS)
 
 
+def h100_d2d_path() -> PathModel:
+    """Device memory -> device memory on the same H100: one copy between
+    two allocations, the stand-in for the reference's chip<->chip ICI
+    path (``rdma_analogue``'s model column).  One copy engine moves the
+    whole measured rate, so there is no multi-channel gain and no
+    direction asymmetry; the per-op setup is a small copy's launch and
+    synchronize."""
+    return PathModel(link_gbps=H100_D2D_COPY_GBPS, t0_us=H100_D2D_T0_US,
+                     single_eff=1.0, max_eff=1.0, c2h_boost=1.0)
+
+
 def qdma_host_path() -> PathModel:
     """Host DRAM <-> device memory through QDMA-style descriptor queues.
 
@@ -121,3 +146,13 @@ def doorbell_bandwidth_gbps(m: PathModel, size_bytes: int, batch: int = 1,
         raise ValueError(batch)
     eff = dataclasses.replace(m, t0_us=m.t0_us / batch)
     return bandwidth_gbps(eff, size_bytes, channels, direction, contended)
+
+
+def project(measured_gbps: float, ceiling_gbps: float,
+            target: PathModel, size_bytes: int, channels: int,
+            direction: Direction) -> float:
+    """Scale a measurement onto a target path: keep the measured
+    *fraction of its ceiling* (on the card, the pinned host->device
+    rate) and apply it to the target's modelled bandwidth."""
+    frac = min(measured_gbps / max(ceiling_gbps, 1e-9), 1.0)
+    return frac * bandwidth_gbps(target, size_bytes, channels, direction)

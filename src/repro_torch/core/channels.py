@@ -37,7 +37,7 @@ import enum
 import queue
 import threading
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -267,6 +267,17 @@ class ChannelPool:
         for i, ((a, b), ch) in enumerate(zip(bounds, chans)):
             ch.submit((tr, i, src if a is None else src[a:b]))
         return tr
+
+    # convenience wrappers -------------------------------------------------
+    def h2c(self, host_arr, **kw) -> Transfer:
+        return self.submit(host_arr, Direction.H2C, **kw)
+
+    def c2h(self, dev_arr, **kw) -> Transfer:
+        return self.submit(dev_arr, Direction.C2H, **kw)
+
+    def drain(self, transfers: Sequence[Transfer]) -> list:
+        """Wait for every transfer; their results, in order."""
+        return [t.wait() for t in transfers]
 
     def close(self) -> None:
         for c in self.channels:

@@ -12,6 +12,14 @@ torch = pytest.importorskip("torch")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PORT = os.path.join(ROOT, "src", "repro_torch")
+# import roots the port never names: jax, and the reference package with
+# its top-level benchmarks and examples
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks",
+             "examples")
+BENCH_MODULES = ("completion_modes", "contention", "host_device_bw",
+                 "rdma_analogue", "far_memory", "overlap", "install_path",
+                 "run")
+EXAMPLES = ("kernels", "serve_requests")
 
 
 def _port_modules():
@@ -31,14 +39,16 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.rmem.verbs", "repro_torch.rmem.node",
             "repro_torch.rmem.store", "repro_torch.core.queues",
             "repro_torch.core.descriptors", "repro_torch.access.selector",
-            "repro_torch.access.adapters"} <= set(mods)
+            "repro_torch.access.adapters"} | {
+        f"repro_torch.benchmarks.{m}" for m in BENCH_MODULES} | {
+        f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = ("import sys, importlib\n"
-            "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
+            f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ml_dtypes', 'repro') and sys.modules[m]]\n"
+            f"{FORBIDDEN!r} and sys.modules[m]]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -62,7 +72,7 @@ def test_port_sources_name_no_reference_module():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     bad = {f: r for f in files for r in _imported_roots(f)
-           if r in ("repro", "jax", "jaxlib", "ml_dtypes")}
+           if r in FORBIDDEN}
     assert not bad, bad
 
 
@@ -97,3 +107,16 @@ def test_new_paths_default_to_the_card(monkeypatch, name):
         QueueEngine(n_channels=1)
     with pytest.raises(RuntimeError, match="CUDA device"):
         MemoryNode("n", 64)
+
+
+@pytest.mark.parametrize("name", [f"benchmarks.{m}" for m in BENCH_MODULES]
+                         + [f"examples.{m}" for m in EXAMPLES])
+def test_bench_and_example_entry_points_want_a_card(monkeypatch, name):
+    """Every benchmark twin and example defaults to cuda and raises
+    without a card; it never falls back to the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        mod.main(["--quick"] if name.startswith("benchmarks") else [])
