@@ -76,25 +76,46 @@ and it stops at the first failing phase with a non-zero exit:
    took); then a dirty round trip through a verbs-backed ``TieredStore``
    of qwen2-0.5b pages: pages updated on the card, evicted dirty, read
    back byte-equal, ``c2h_bytes`` = dirty pages x page size;
-9. bench phase: ``repro_torch.benchmarks.run --quick`` on the card (the
+9. fabric phases, each counted: full-width qwen2-0.5b over a sharded KV
+   plane (``--kv-shards 4 --kv-replicas 2 --kv-kill-node 5``) of xdma
+   members, then of verbs members, and recurrentgemma-2b (2100-token
+   prompts, max_len 2304) over ``--kv-shards 2 --kv-replicas 2
+   --kv-kill-node 3`` of xdma members: the unpaged run's tokens, the
+   kill landed with ``repair.lost == 0``, the page kernels launched (the
+   hybrid's flash and rg_lru too); each ``[fabric]`` line prints TTFT
+   and TPOT p50/p99 beside the single-path paged serve's, the repair's
+   seconds, failovers and pages moved.  Then the chaos serve: qwen2-0.5b
+   over ``--kv-shards 3 --kv-replicas 2`` with ``--fault-seed 7
+   --fault-rate 0.05 --fault-corrupt 0.2 --fault-flap 2:12`` against its
+   fault-free baseline (equal tokens, nothing shed or undrained; the
+   plan's counters and retry stats printed); then the qwen2-0.5b kill
+   serve again with ``--trace-out`` (under ``chiprun_out/trace``) and
+   ``--metrics``, its trace passing ``repro_torch.obs.validate`` with the
+   serve, tier, fabric and path layers and the ``fabric.fail`` and
+   ``serve.kill`` instants;
+10. bench phase: ``repro_torch.benchmarks.run --quick`` on the card (the
    paper's channel, contention, completion, RDMA-analogue, far-memory,
-   overlap and install benchmarks; far-memory's path-selection sweep and
-   full-width qwen2-0.5b serves over every access path, with their JSON
-   under ``chiprun_out/bench``), then the kernel tour
+   overlap, fabric, chaos and install benchmarks; far-memory's
+   path-selection sweep and full-width qwen2-0.5b serves over every
+   access path, the chaos soak's full-width qwen2-0.5b serves, with
+   their JSON under ``chiprun_out/bench``), then the kernel tour
    (``repro_torch.examples.kernels``) and the serving example
    (full-width recurrentgemma-2b), each counted.  Every byte check of a
    round trip raises inside the modules; held here are install parity,
    overlap ``bit_exact``, ``all_match_model``, every access path giving
    the verbs run's tokens, clean evictions moving 0 bytes and dirty ones
-   exactly their pages' bytes.  Speed ratios are printed, not held;
-10. reference check: at the smoke size in float32, qwen2-0.5b's and
+   exactly their pages' bytes, the fabric sweep bit-exact with no page
+   lost, and the chaos soak bit-exact with its replicated cells shedding
+   nothing.  Speed ratios are printed, not held;
+11. reference check: at the smoke size in float32, qwen2-0.5b's and
    recurrentgemma-2b's prefill logits on the card agree with the CPU's
    within 1e-4 (the hybrid prompt of 40 tokens overruns its window of
    32);
 
 Every kernel launch count is zeroed just before each counted run (the
-paged serves over every access path, the capacity serves, the Fig-8
-sweep, the bench phase's benchmarks and examples) and read just after;
+paged serves over every access path, the capacity serves, the fabric,
+chaos and trace serves, the Fig-8 sweep, the bench phase's benchmarks
+and examples) and read just after;
 the ``kernels`` line sums them.  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
@@ -856,6 +877,106 @@ def codec_serve_phase(arch: str, flags, base: dict, modes,
     return results
 
 
+def _lat_line(res: dict) -> str:
+    lat = res["latency"]
+    return (f"ttft_p50_ms={lat['ttft_s']['p50'] * 1e3:.2f} "
+            f"ttft_p99_ms={lat['ttft_s']['p99'] * 1e3:.2f} "
+            f"tpot_p50_ms={lat['tpot_s']['p50'] * 1e3:.2f} "
+            f"tpot_p99_ms={lat['tpot_s']['p99'] * 1e3:.2f}")
+
+
+def fabric_kill_phase(arch: str, flags, base: dict, member: str,
+                      shards: int, kill_step: int, needs,
+                      extra=()) -> dict:
+    """Serve ``arch`` over a ``shards``-member fabric of ``member``
+    paths, two replicas, one member killed at ``kill_step`` (counted):
+    the tokens must equal ``base``'s (the unpaged run's), the kill must
+    land with nothing lost, and the kernels of ``needs`` must launch.
+    Prints TTFT/TPOT p50/p99 beside the single-path paged serve's, the
+    repair's seconds, failovers and pages moved."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--requests", "8", "--slots", "4",
+            "--max-new", "16", "--device", "cuda", "--access-path", member,
+            "--kv-shards", str(shards), "--kv-replicas", "2",
+            "--kv-kill-node", str(kill_step)] + list(flags) + list(extra)
+    res, launches = counted(lambda: serve.main(argv))
+    fb = res["fabric"]
+    rep = fb["repair"]
+    print(f"[fabric] {arch} member={member} shards={shards} replicas=2 "
+          f"kill_step={fb['kill_step']} killed={fb['killed']} "
+          f"launches={launches} {_lat_line(res)} "
+          f"repair_s={rep['seconds']:.6f} moved_pages={rep['moved_pages']} "
+          f"pages_moved={fb['pages_moved']} lost={rep['lost']} "
+          f"failovers={fb['failovers']} epoch={fb['epoch']} "
+          f"tok_per_s={res['tok_per_s']:.2f} | single-path xdma "
+          f"{_lat_line(base)}", flush=True)
+    assert fb["killed"] is not None and fb["kill_step"] == kill_step, fb
+    assert rep["lost"] == 0, rep
+    assert res["requests"] == 8 and res["undrained"] == 0, res
+    assert res["install"]["fused"] == 8, res["install"]
+    assert all(launches[n] > 0 for n in needs), (needs, launches)
+    assert res["outputs"] == base["outputs"], \
+        f"{arch}: the fabric kill serve over {member} changed the tokens"
+    return res
+
+
+def chaos_phase(base: dict) -> dict:
+    """Full-width qwen2-0.5b over a 3-member, 2-replica fabric under the
+    seeded fault plan, against its fault-free baseline of the same
+    topology (both counted): equal tokens, nothing shed or undrained;
+    prints the plan's counters and the retry stats."""
+    from repro_torch.launch import serve
+
+    argv = ["--requests", "8", "--slots", "4", "--max-new", "16",
+            "--device", "cuda", "--access-path", "xdma", "--kv-shards",
+            "3", "--kv-replicas", "2"]
+    clean, cl = counted(lambda: serve.main(argv))
+    res, launches = counted(lambda: serve.main(
+        argv + ["--fault-seed", "7", "--fault-rate", "0.05",
+                "--fault-corrupt", "0.2", "--fault-flap", "2:12"]))
+    f = res["faults"]
+    print(f"[chaos] qwen2-0.5b shards=3 replicas=2 plan={f['plan']} "
+          f"retry={f['retry']} flaps={f['flaps']} shed={res['shed']} "
+          f"undrained={res['undrained']} "
+          f"failovers={res['fabric']['failovers']} integrity_failures="
+          f"{res['fabric']['integrity_failures']} launches={launches} "
+          f"{_lat_line(res)} | fault-free {_lat_line(clean)}", flush=True)
+    assert clean["outputs"] == base["outputs"], "fabric changed the tokens"
+    assert res["outputs"] == clean["outputs"], "faults changed the tokens"
+    assert res["shed"] == 0 and res["undrained"] == 0, res["faults"]
+    assert launches["pack_page"] > 0 and launches["install_pages"] > 0
+    return res
+
+
+def trace_phase(base: dict) -> dict:
+    """The qwen2-0.5b kill serve again with ``--trace-out`` and
+    ``--metrics``: the trace must pass
+    ``repro_torch.obs.validate.validate_trace`` with the serve, tier,
+    fabric and path layers and the ``fabric.fail`` and ``serve.kill``
+    instants.  Tracing and live metrics are switched off after."""
+    from repro_torch import obs
+    from repro_torch.obs.validate import validate_trace
+
+    out = os.path.join(ROOT, "chiprun_out", "trace")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "serve_kill_trace.json")
+    try:
+        res = fabric_kill_phase("qwen2-0.5b", [], base, "xdma", 4, 5,
+                                ("pack_page", "install_pages"),
+                                extra=("--trace-out", path, "--metrics"))
+    finally:
+        obs.trace.disable()
+        obs.metrics.disable_live()
+    info = validate_trace(path, require_cats=("serve", "tier", "fabric",
+                                              "path"),
+                          require_instants=("fabric.fail", "serve.kill"))
+    print(f"[trace] {os.path.relpath(path, ROOT)}: {info['events']} "
+          f"events, {info['spans']} spans, layers={info['cats']}, "
+          f"metrics={len(res['metrics'])} keys", flush=True)
+    return info
+
+
 def bench_phase() -> dict:
     """This slice's path: ``repro_torch.benchmarks.run --quick`` on the
     card (every module; far-memory's path-selection sweep and serves and
@@ -878,7 +999,9 @@ def bench_phase() -> dict:
         ["--quick", "--device", "cuda",
          "--json", os.path.join(out, "BENCH_miss_pipeline.json"),
          "--select-json", os.path.join(out, "BENCH_path_select.json"),
-         "--install-json", os.path.join(out, "BENCH_install_path.json")]))
+         "--install-json", os.path.join(out, "BENCH_install_path.json"),
+         "--fabric-json", os.path.join(out, "BENCH_fabric.json"),
+         "--chaos-json", os.path.join(out, "BENCH_chaos.json")]))
     print(f"[bench] benchmarks.run --quick launches={launches}", flush=True)
     assert all(launches[n] > 0 for n in ("pack_page", "install_pages",
                                          "flash_attention", "stream_copy")), \
@@ -896,10 +1019,29 @@ def bench_phase() -> dict:
         assert dirty == round(r["dirty_ratio"] * r["evictions"]), r
         assert r["writeback_bytes"] == r["c2h_bytes"] == \
             dirty * far_memory.DIRTY_PAGE_BYTES, r
+    fab = res["fabric_sweep"]["fabric"]
+    assert fab["bit_exact"] is True and fab["failover"]["lost"] == 0, fab
+    assert fab["ok_rebalance"] is True, fab["rebalance"]
+    ch = res["chaos_soak"]["chaos"]
+    assert ch["bit_exact"] is True, ch
+    for r in ch["rows"]:
+        assert r["served"] + r["shed"] == 8, r
+        if r["replicas"] > 1:
+            assert r["shed"] == 0, r
     print(f"[bench] held: install parity, overlap bit_exact, "
           f"all_match_model, every path gives verbs' tokens, "
           f"{len(fm['dirty_sweep'])} eviction rows (clean 0 B, dirty = "
-          f"pages x {far_memory.DIRTY_PAGE_BYTES} B)", flush=True)
+          f"pages x {far_memory.DIRTY_PAGE_BYTES} B), fabric bit_exact "
+          f"with 0 pages lost and a moved fraction of "
+          f"{fab['rebalance']['moved_fraction']:.3f}, chaos bit_exact "
+          f"with the replicated cells shedding nothing", flush=True)
+    print(f"[bench] fabric: scaling_4_vs_1={fab['scaling_4_vs_1']:.3f}x "
+          f"shards1_vs_baseline={fab['shards1_vs_baseline']:.3f} "
+          f"failover repair_s={fab['failover']['repair_s']:.4f} "
+          f"ok={fab['ok']} | chaos: injected={ch['total_injected']} "
+          f"shed={ch['total_shed']} ok={ch['ok']} p99 inflation s="
+          + ",".join(f"{r['cell']}:{r['p99_inflation_s']:.3f}"
+                     for r in ch["rows"]), flush=True)
     print(f"[bench] not held: install depth4_speedup="
           f"{gate['depth4_speedup']:.2f}x (reference gate 1.5x) "
           f"overlap speedup={ov['speedup']:.2f}x ok={ov['ok']} "
@@ -1027,13 +1169,23 @@ def main() -> int:
     codec_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
                       ("int8", "share"), 2100, 2304)
     dirty_round_trip()
+    unpaged = qwen["result"]            # the paged run's = unpaged tokens
+    for member in ("xdma", "verbs"):
+        fabric_kill_phase("qwen2-0.5b", [], unpaged, member, 4, 5,
+                          page_kernels)
+    fabric_kill_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
+                      "xdma", 2, 3,
+                      page_kernels + ("flash_attention", "rg_lru_scan"))
+    chaos_phase(unpaged)
+    trace_phase(unpaged)
     bench_phase()
     reference_check("qwen2-0.5b", 12, 32)
     reference_check("recurrentgemma-2b", 40, 64)
 
     # launches: summed over every counted run (the paged serves over
-    # every access path, the codec and prefix-share serves, the Fig-8
-    # sweep, the benchmarks and examples of the bench phase), each from 0
+    # every access path, the codec and prefix-share serves, the fabric,
+    # chaos and trace serves, the Fig-8 sweep, the benchmarks and
+    # examples of the bench phase), each from 0
     launches = LAUNCHES
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
     kernels = [

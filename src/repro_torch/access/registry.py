@@ -13,8 +13,10 @@ Registered:
     verbs  — one-sided verbs onto far-memory nodes
     auto   — ``PathSelector`` over the above (page-backed members when
              geometry is given, stage-only xdma+qdma members otherwise)
-
-``fabric`` (the sharded memory plane) is not ported yet.
+    fabric — ``ShardedPath`` of N homogeneous members
+             (``repro_torch.fabric.create_fabric``; ``member=``,
+             ``shards=``, ``replicas=``); its ``**member_kw`` take every
+             keyword, ``device`` included, on to each member's factory
 """
 from __future__ import annotations
 
@@ -86,6 +88,15 @@ def _auto_factory(n_pages: int = 0, page_bytes: int = 0,
 
 
 DEFAULT_REGISTRY.register("auto", _auto_factory)
+
+
+def _fabric_factory(**kw):
+    # deferred: repro_torch.fabric imports this module's create_path
+    from repro_torch.fabric import create_fabric
+    return create_fabric(**kw)
+
+
+DEFAULT_REGISTRY.register("fabric", _fabric_factory)
 
 
 def create_path(name: str, **kw) -> MemoryPath:

@@ -15,9 +15,9 @@ artifacts by default, as the reference's CI smoke does.
 
 Ported: ``vmem_stream`` (Fig 8), ``host_device_bw`` (Figs 9-10,
 15-18), ``contention`` (Figs 11-12), ``completion_modes`` (Figs
-13-14), ``rdma_analogue`` (Figs 19-20), ``far_memory``, ``overlap`` and
-``install_path``.  Not ported yet, with the ROADMAP A item that brings
-each: ``fabric`` and ``chaos`` (A.3), ``serve_slo`` and ``kv_capacity``
+13-14), ``rdma_analogue`` (Figs 19-20), ``far_memory``, ``overlap``,
+``fabric``, ``chaos`` and ``install_path``.  Not ported yet, with the
+ROADMAP A item that brings each: ``serve_slo`` and ``kv_capacity``
 (A.4), ``offload_step`` and ``e2e_step`` (A.6).
 
 ``main`` returns each module's result by name and exits non-zero when a
@@ -30,10 +30,10 @@ import sys
 import traceback
 
 from repro_torch import obs
-from repro_torch.benchmarks import (common, completion_modes, contention,
-                                    far_memory, host_device_bw,
-                                    install_path, overlap, rdma_analogue,
-                                    vmem_stream)
+from repro_torch.benchmarks import (chaos, common, completion_modes,
+                                    contention, fabric, far_memory,
+                                    host_device_bw, install_path, overlap,
+                                    rdma_analogue, vmem_stream)
 from repro_torch.device import resolve_device
 
 MODULES = [
@@ -44,6 +44,8 @@ MODULES = [
     ("fig19_20_rdma_analogue", rdma_analogue),
     ("farmem_tier_sweep", far_memory),
     ("serve_overlap", overlap),
+    ("fabric_sweep", fabric),
+    ("chaos_soak", chaos),
     ("install_path", install_path),
 ]
 
@@ -61,6 +63,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--select-json", default="",
                     help="path-selection sweep JSON path (farmem module); "
                          "defaults to BENCH_path_select.json with --smoke")
+    ap.add_argument("--fabric-json", default="",
+                    help="fabric sweep JSON path (fabric module); "
+                         "defaults to BENCH_fabric.json with --smoke")
+    ap.add_argument("--chaos-json", default="",
+                    help="chaos soak JSON path (chaos module); "
+                         "defaults to BENCH_chaos.json with --smoke")
     ap.add_argument("--install-json", default="",
                     help="install-path bench JSON path (install_path "
                          "module); defaults to BENCH_install_path.json "
@@ -89,6 +97,10 @@ def main(argv=None) -> dict:
                              else "")
     select_out = args.select_json or ("BENCH_path_select.json"
                                       if args.smoke else "")
+    fabric_out = args.fabric_json or ("BENCH_fabric.json"
+                                      if args.smoke else "")
+    chaos_out = args.chaos_json or ("BENCH_chaos.json"
+                                    if args.smoke else "")
     install_out = args.install_json or ("BENCH_install_path.json"
                                         if args.smoke else "")
 
@@ -106,6 +118,10 @@ def main(argv=None) -> dict:
                       smoke=args.smoke)
         elif mod is install_path:
             kw.update(out=install_out, smoke=args.smoke)
+        elif mod is fabric:
+            kw.update(out=fabric_out)
+        elif mod is chaos:
+            kw.update(out=chaos_out, smoke=args.smoke)
         elif mod is overlap:
             kw.update(smoke=args.smoke)
         try:

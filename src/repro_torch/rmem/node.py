@@ -13,9 +13,12 @@ which the node thread synchronises) and a host copy with
 *coalesced*: the whole run is gathered into a single staged transfer,
 so a doorbell of N batched reads or writes pays one hop instead of N
 (``staged_hops`` and ``coalesced_runs`` count them as the reference
-does).  The reference's fault-injection hooks, fault scopes and fabric
-membership epochs are not ported yet: they come with the fabric and
-fault wiring.
+does).  Under an installed ``FaultPlan`` every WR runs on its own,
+uncoalesced, and draws its own fault from the node's ``fault_scope``
+(``name#N``, a process-wide counter as in the reference); an injected
+bit-flip lands in the host buffer the hop just filled (the pool on a
+write, the MR on a read), never in a device tensor.  The fabric stamps
+its membership ``epoch`` into every node and address map it routes to.
 
 ``AddressMap`` is the SimBricks-memswitch routing table: ordered
 ``(vaddr_start, vaddr_end, node, phys_start)`` ranges; an access spanning a
@@ -24,6 +27,7 @@ range boundary is split across nodes, exactly like the exemplar's
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -34,11 +38,18 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.faults import injector as _faults
 from repro_torch.rmem.verbs import OpCode, WorkRequest, _Doorbell
 
 
 class MemoryNode:
     """One far-memory server: byte pool + WR-executing worker thread."""
+
+    # fault-injection scope ids: names collide across backends (every
+    # single-node RemoteBackend calls its node "memnode0"), so scopes
+    # carry a process-unique suffix — a flap scheduled for one fabric
+    # member must not take down every shard at once
+    _scope_ids = itertools.count()
 
     def __init__(self, name: str, capacity_bytes: int, device=None,
                  latency_s: float = 0.0):
@@ -54,8 +65,10 @@ class MemoryNode:
         if latency_s < 0:
             raise ValueError(f"latency_s must be >= 0, got {latency_s}")
         self.name = name
+        self.fault_scope = f"{name}#{next(MemoryNode._scope_ids)}"
         self.capacity_bytes = capacity_bytes
         self.latency_s = latency_s
+        self.epoch = 0                      # fabric membership epoch
         self.device = resolve_device(device)
         self.stream = torch.cuda.Stream(device=self.device) \
             if self.device.type == "cuda" else None
@@ -95,6 +108,17 @@ class MemoryNode:
         checkpoint node between retention epochs."""
         self._brk = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Advance this node's view of the fabric membership epoch.
+
+        Epochs are monotonic — a decrease means a stale controller is
+        trying to roll the membership back, which is exactly the split-
+        brain the epoch exists to detect, so it raises."""
+        if epoch < self.epoch:
+            raise ValueError(f"{self.name}: epoch must be monotonic "
+                             f"({epoch} < {self.epoch})")
+        self.epoch = epoch
+
     # -- WR execution ----------------------------------------------------
     def execute(self, wrs: Sequence[WorkRequest], bell: _Doorbell) -> None:
         """Enqueue one routed doorbell batch for the server thread."""
@@ -110,6 +134,19 @@ class MemoryNode:
             wrs, bell = item
             if self.latency_s > 0:
                 time.sleep(self.latency_s)      # modeled link RTT
+            if _faults.ACTIVE:
+                # per-WR execution under injection: each WR gets its own
+                # fault draw, and a single injected error fails only its
+                # WR — the coalesced-run fallback would re-execute (and
+                # re-draw faults for) the whole run
+                for wr in wrs:
+                    err: Optional[Exception] = None
+                    try:
+                        self._execute_one(wr)
+                    except Exception as e:
+                        err = e
+                    bell.wr_done(wr, err)
+                continue
             # coalesce runs of same-opcode WRs: one staged device hop per
             # run (the doorbell amortization — N batched reads/writes cost
             # one hop instead of N)
@@ -148,18 +185,33 @@ class MemoryNode:
         return back.numpy()
 
     def _execute_one(self, wr: WorkRequest) -> None:
+        if _faults.ACTIVE:
+            plan = _faults.current()
+            if plan is not None:
+                # may sleep (straggler) or raise a typed transient error
+                # (flap window / injected completion error or timeout);
+                # the error lands on exactly this WR via bell.wr_done
+                plan.before_op(self.fault_scope)
         self._check_bounds(wr)
         self.ops += 1
         self.staged_hops += 1
         if wr.opcode == OpCode.WRITE:
             src = wr.mr.view(wr.local_offset, wr.nbytes)
-            self.pool[wr.phys_addr:wr.phys_addr + wr.nbytes] = \
-                self._hop(src)                          # the link hop
+            dst = self.pool[wr.phys_addr:wr.phys_addr + wr.nbytes]
+            dst[:] = self._hop(src)                     # the link hop
             self.bytes_in += wr.nbytes
         else:
-            wr.mr.view(wr.local_offset, wr.nbytes)[:] = self._hop(
+            dst = wr.mr.view(wr.local_offset, wr.nbytes)
+            dst[:] = self._hop(
                 self.pool[wr.phys_addr:wr.phys_addr + wr.nbytes])
             self.bytes_out += wr.nbytes
+        if _faults.ACTIVE:
+            plan = _faults.current()
+            if plan is not None:
+                # silent in-flight corruption: flip a bit in the host
+                # buffer the hop just filled (pool on write, MR on read)
+                # — only checksums can catch this
+                plan.corrupt(self.fault_scope, dst)
 
     def _execute_run(self, run: Sequence[WorkRequest], bell: _Doorbell) \
             -> None:
@@ -239,12 +291,29 @@ class MapEntry:
 
 
 class AddressMap:
-    """Ordered virtual->physical routing table over memory nodes."""
+    """Ordered virtual->physical routing table over memory nodes.
+
+    Carries the fabric membership ``epoch``: the sharded fabric stamps
+    every membership change (failure, ring flip) down into each
+    member's map and nodes via ``set_epoch``, so any layer holding a
+    routing view can compare epochs and detect that it is stale.
+    """
 
     def __init__(self, entries: Sequence[MapEntry] = ()):
         self.entries: List[MapEntry] = []
+        self.epoch = 0
         for e in entries:
             self.add_range(e.vaddr_start, e.vaddr_end, e.node, e.phys_start)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Advance the membership epoch (monotonic) and stamp it onto
+        every node this map routes to."""
+        if epoch < self.epoch:
+            raise ValueError(f"epoch must be monotonic "
+                             f"({epoch} < {self.epoch})")
+        self.epoch = epoch
+        for node in self.nodes:
+            node.set_epoch(epoch)
 
     def add_range(self, vaddr_start: int, vaddr_end: int, node: MemoryNode,
                   phys_start: int = 0) -> MapEntry:

@@ -277,6 +277,12 @@ class TieredStore:
         bad = [(k, p) for k, p in zip(rows, group_pages)
                if not self.checksums.check(p, raw[k])]
         if bad:
+            if obs.metrics.live():
+                obs.default_registry().counter(
+                    "tier.integrity_failures").inc(len(bad))
+            if obs.trace.enabled():
+                obs.instant("faults.integrity",
+                            pages=[p for _, p in bad], layer="tier")
             raw = np.array(raw, copy=True)  # gather rows may be shared
             for k, p in bad:
                 got = self._load_stored(p)

@@ -15,8 +15,8 @@ easy API over a separate link, as a verbs surface:
 
 Every executed WR crosses its node's link hop (``rmem/node.py``: a copy
 onto the node's torch device and back) before bytes land in the node's
-pool.  The reference's fault-injection hook on completion delivery is
-not ported yet (the fault wiring comes with the fabric).
+pool.  Under an installed ``FaultPlan`` completion delivery may lag
+(``plan.delay`` on the completion queue's source, the straggler hook).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import numpy as np
 
 from repro_torch.core.channels import CompletionMode
 from repro_torch.cplane import Completion, CompletionTimeout, default_reactor
+from repro_torch.faults import injector as _faults
 
 
 class OpCode(enum.Enum):
@@ -153,6 +154,13 @@ class CompletionQueue:
             return False
 
     def push(self, wc: WorkCompletion) -> None:
+        if _faults.ACTIVE:
+            plan = _faults.current()
+            if plan is not None:
+                # straggler-only: completion delivery can lag (the NIC
+                # event path stalls the characterization papers report),
+                # but never fails an already-executed WR
+                plan.delay(self.source)
         with self._lock:
             self._ring.append(wc)
             self.n_completions += 1

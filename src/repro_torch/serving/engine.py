@@ -34,9 +34,21 @@ against one read-only base page per prefix.  Tokens are unchanged by
 sharing, and by ``bf16`` on a bf16 cache; ``kv_capacity_bytes`` sets the
 store's soft physical-byte budget, which ``kv_free_pages`` reports.
 
-Not ported yet: the admission controller (which reads
-``kv_free_pages`` and ``kv_page_cost``), the sharded fabric and the
-fault wiring (``kv_retry``, ``kv_integrity``).
+The sharded memory plane: ``kv_shards > 1`` builds a ``ShardedPath``
+of that many ``access_path`` members (two channels each) with
+``kv_replicas`` copies of every page, and ``kv_kill_step`` fails its
+last alive member at that decode step: reads fail over to replicas and
+``FabricManager.kill`` re-replicates onto the survivors inside that
+step, so tokens stay bit-exact.  ``kv_nodes`` is the deprecated
+spelling of ``kv_shards``.  Chaos mode: ``kv_retry`` (a ``RetryPolicy``)
+and ``kv_integrity`` (per-page checksums) live in the fabric when
+sharded and in the tier store otherwise, never both; a request whose
+paging op stays failed after retries and failover is shed
+(``Request.failed`` carries the reason) while the batch decodes on.
+
+Not ported yet (ROADMAP A.4): the admission controller (which reads
+``kv_free_pages`` and ``kv_page_cost``) and the fleet's shared plane
+(``shared_path``, ``page_base``, ``total_pages``).
 """
 from __future__ import annotations
 
@@ -52,7 +64,8 @@ import torch
 from repro_torch import cplane, obs
 from repro_torch.access.registry import create_path
 from repro_torch.device import resolve_device
-from repro_torch.faults.retry import RETRIABLE
+from repro_torch.fabric import FabricManager
+from repro_torch.faults.retry import RETRIABLE, RetryPolicy
 from repro_torch.interop import tree_flatten, tree_unflatten
 from repro_torch.kernels import page_install as pi
 from repro_torch.models import lm
@@ -71,6 +84,9 @@ class Request:
     max_new: int = 16
     out_tokens: Optional[List[int]] = None
     failed: Optional[str] = None       # rejection reason (engine kept going)
+    # the submitting tenant, which keys the per-tenant latency metrics;
+    # one engine serves "default" (the fleet frontend comes with A.4)
+    tenant: str = "default"
     # shared-prefix length: the first prefix_len prompt tokens are a
     # cross-request prefix; a paging engine with prefix_share=True dedups
     # the slot's spilled page against the base keyed by those tokens
@@ -131,9 +147,14 @@ def page_codec_for(cfg, max_len: int, codec: Optional[str]):
 class ServeEngine:
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 256, access_path: Optional[str] = None,
-                 kv_backend: Optional[str] = None, kv_doorbell: int = 4,
+                 kv_backend: Optional[str] = None,
+                 kv_shards: int = 1, kv_replicas: int = 1,
+                 kv_kill_step: Optional[int] = None,
+                 kv_nodes: Optional[int] = None, kv_doorbell: int = 4,
                  overlap: bool = True, overlap_grace_s: float = 0.002,
                  kv_node_latency_s: float = 0.0,
+                 kv_retry: Optional[RetryPolicy] = None,
+                 kv_integrity: bool = False,
                  fused_install: bool = True,
                  kv_codec: str = "none", prefix_share: bool = False,
                  prefix_pages: int = 8,
@@ -147,6 +168,28 @@ class ServeEngine:
                 DeprecationWarning, stacklevel=2)
             if access_path is None:
                 access_path = _KV_BACKEND_ALIAS[kv_backend]
+        if kv_nodes is not None:
+            # membership is the fabric's (sharded members, each a whole
+            # path), so the old striped-nodes knob folds into it
+            warnings.warn(
+                "ServeEngine(kv_nodes=...) is deprecated; use "
+                "kv_shards=N (fabric membership)", DeprecationWarning,
+                stacklevel=2)
+            if kv_shards == 1:
+                kv_shards = kv_nodes
+        if kv_shards < 1:
+            raise ValueError(f"kv_shards must be >= 1, got {kv_shards}")
+        if not 1 <= kv_replicas <= max(kv_shards, 1):
+            raise ValueError(f"kv_replicas={kv_replicas} must be in "
+                             f"[1, kv_shards={kv_shards}]")
+        if kv_kill_step is not None and kv_replicas < 2:
+            raise ValueError(
+                "kv_kill_step without replication would lose pages: "
+                "use kv_replicas >= 2")
+        if access_path is None and (kv_shards > 1 or
+                                    kv_kill_step is not None):
+            # sharding implies paging, as on the CLI
+            access_path = "xdma"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -185,11 +228,22 @@ class ServeEngine:
         self.install_fallback = 0       # ... vs the per-leaf chain
         self.install_hops_saved = 0     # per-leaf D2H readbacks avoided
         self._admit_spills: List[int] = []   # pages spilled this admit
+        self.kv_shards = kv_shards
+        self.kv_replicas = kv_replicas
+        self.kv_kill_step = kv_kill_step
         self.shed_requests = 0
+        self.fabric = None                  # ShardedPath when sharded
+        self.fabric_mgr = None
+        self.killed_member: Optional[str] = None
+        self.kill_step: Optional[int] = None
+        self.kill_repair: Optional[dict] = None
         self._step_no = 0
         self.ttft_hist = obs.LogHistogram()
         self.tpot_hist = obs.LogHistogram()
         self.queue_wait_hist = obs.LogHistogram()
+        # fabric membership events, drained each step and stamped with
+        # the decode step they landed in
+        self.fabric_events: List[dict] = []
         self.pager: Optional[TieredStore] = None
         if access_path is not None:
             page_bytes = self._layout.page_bytes
@@ -199,15 +253,29 @@ class ServeEngine:
                 else page_bytes
             n_tier_pages = batch_slots + self.prefix_pages
             # registry factories drop kwargs their path doesn't take
-            apath = create_path(access_path, n_pages=n_tier_pages,
-                                page_bytes=phys_bytes, n_channels=2,
-                                n_nodes=1, doorbell_batch=kv_doorbell,
-                                node_latency_s=kv_node_latency_s,
-                                device=self.device)
+            path_kw = dict(n_pages=n_tier_pages, page_bytes=phys_bytes,
+                           n_channels=2, n_nodes=1,
+                           doorbell_batch=kv_doorbell,
+                           node_latency_s=kv_node_latency_s,
+                           device=self.device)
+            if kv_shards > 1:
+                # N member paths behind one consistent-hash ShardedPath:
+                # the store stays shard-oblivious, both hops ride it
+                apath = create_path(
+                    "fabric", member=access_path, shards=kv_shards,
+                    replicas=kv_replicas, retry=kv_retry,
+                    integrity=kv_integrity, **path_kw)
+                self.fabric = apath
+                self.fabric_mgr = FabricManager(apath)
+            else:
+                apath = create_path(access_path, **path_kw)
+            # one retry layer, not two: the fabric retries and fails over
+            # internally, a tier policy on top would multiply attempts
             self.pager = TieredStore(
                 n_pages=n_tier_pages, page_shape=(page_bytes,),
                 dtype="uint8", n_hot_slots=batch_slots, path=apath,
-                codec=codec,
+                retry=kv_retry if self.fabric is None else None,
+                integrity=kv_integrity, codec=codec,
                 shared_pool=range(batch_slots, n_tier_pages),
                 capacity_bytes=kv_capacity_bytes)
 
@@ -318,7 +386,13 @@ class ServeEngine:
         """Admit ``req`` into slot ``s``: prefill, then either install
         inline (no paging) or spill + park pending-install."""
         req.t_admit_pc = time.perf_counter()
-        self.queue_wait_hist.record(req.t_admit_pc - req.t_submit_pc)
+        qw = req.t_admit_pc - req.t_submit_pc
+        self.queue_wait_hist.record(qw)
+        if obs.metrics.live():
+            reg = obs.default_registry()
+            reg.histogram("serve.queue_wait_s").record(qw)
+            reg.histogram(
+                f"serve.tenant.{req.tenant}.queue_wait_s").record(qw)
         P = len(req.prompt)
         batch = {"tokens": torch.as_tensor(
             np.asarray(req.prompt, np.int32), device=self.device)[None]}
@@ -380,6 +454,10 @@ class ServeEngine:
         req.t_first_pc = time.perf_counter()
         ttft = req.t_first_pc - req.t_submit_pc
         self.ttft_hist.record(ttft)
+        if obs.metrics.live():
+            reg = obs.default_registry()
+            reg.histogram("serve.ttft_s").record(ttft)
+            reg.histogram(f"serve.tenant.{req.tenant}.ttft_s").record(ttft)
         if obs.trace.enabled():
             obs.instant("serve.first_token", rid=req.rid, slot=s,
                         ttft_s=ttft)
@@ -403,6 +481,14 @@ class ServeEngine:
                 self.pager.discard_cold(slot)
             except Exception:
                 pass
+        if obs.trace.enabled():
+            obs.instant("serve.shed", rid=req.rid, reason=reason,
+                        tenant=req.tenant)
+        if obs.metrics.live():
+            reg = obs.default_registry()
+            reg.counter("serve.shed_requests").inc()
+            reg.counter(
+                f"serve.tenant.{req.tenant}.shed_requests").inc()
         obs.async_end("serve.request", req.rid, shed=True)
 
     def _install_ready(self, have_active: bool) -> None:
@@ -459,6 +545,9 @@ class ServeEngine:
                 return
             self._install(s, req, tok, caches1)
             self.install_fallback += 1
+            if obs.metrics.live():
+                obs.default_registry().counter(
+                    "serve.install_fallback").inc()
 
     def _install_ready_fused(self, ready: List[int]) -> None:
         """Install a group of settled slots through ONE install_pages
@@ -486,6 +575,9 @@ class ServeEngine:
                                      [packed[s] for s in group], group,
                                      codec=codec)
         self.install_fused += len(ready)
+        if obs.metrics.live():
+            obs.default_registry().counter(
+                "serve.install_fused").inc(len(ready))
         for s, (req, tok, _leaves, _spec) in zip(ready, meta):
             self._install_meta(s, req, tok)
 
@@ -494,15 +586,48 @@ class ServeEngine:
         self.done.append(req)
         n = len(req.out_tokens)
         if req.t_first_pc > 0.0 and n > 1:
-            self.tpot_hist.record((req.t_done_pc - req.t_first_pc) / (n - 1))
+            tpot = (req.t_done_pc - req.t_first_pc) / (n - 1)
+            self.tpot_hist.record(tpot)
+            if obs.metrics.live():
+                reg = obs.default_registry()
+                reg.histogram("serve.tpot_s").record(tpot)
+                reg.histogram(
+                    f"serve.tenant.{req.tenant}.tpot_s").record(tpot)
         obs.async_end("serve.request", req.rid, tokens=n)
+
+    def _maybe_kill_node(self) -> None:
+        """Fail one fabric member at the configured step (fault
+        injection): reads fail over to replicas at once and the manager
+        re-replicates onto the survivor ring inside this step — decode
+        output stays bit-exact through it."""
+        if self.fabric_mgr is None or self.kv_kill_step is None or \
+                self.killed_member is not None or \
+                self._step_no < self.kv_kill_step:
+            return
+        victim = self.fabric.alive_members()[-1]
+        if obs.trace.enabled():
+            obs.instant("serve.kill", member=victim, step=self._step_no)
+        self.kill_repair = self.fabric_mgr.kill(victim)
+        self.killed_member = victim
+        self.kill_step = self._step_no
+
+    def _drain_fabric_events(self) -> None:
+        """Stamp the fabric's membership events (fail, epoch, ring flip,
+        repair) with the decode step they landed in."""
+        if self.fabric is None:
+            return
+        for ev in self.fabric.drain_events():
+            ev["step"] = self._step_no
+            self.fabric_events.append(ev)
 
     def step(self) -> int:
         """One batched decode step; returns #active slots."""
         self._step_no += 1
+        self._maybe_kill_node()
         self._admit()
         if self.pager is not None:
             self._install_ready(any(r is not None for r in self.slot_req))
+        self._drain_fabric_events()
         active = [s for s in range(self.B) if self.slot_req[s] is not None]
         if not active:
             return 0

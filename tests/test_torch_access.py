@@ -325,8 +325,10 @@ class TestSelector:
 
 
 def test_registry_filters_kwargs_and_names():
+    from repro.access import DEFAULT_REGISTRY as REF_REGISTRY
     from repro_torch.access import DEFAULT_REGISTRY
-    assert DEFAULT_REGISTRY.names() == ["auto", "qdma", "verbs", "xdma"]
+    assert DEFAULT_REGISTRY.names() == REF_REGISTRY.names() == \
+        ["auto", "fabric", "qdma", "verbs", "xdma"]
     with create_path("xdma", n_pages=1, page_bytes=32, n_channels=1,
                      n_nodes=7, doorbell_batch=3, node_latency_s=0.1,
                      **CPU) as p:
@@ -336,4 +338,4 @@ def test_registry_filters_kwargs_and_names():
         assert isinstance(p, VerbsPath) and len(p.backend.amap.nodes) == 2
         assert all(n.device.type == "cpu" for n in p.backend.amap.nodes)
     with pytest.raises(ValueError, match="unknown access path"):
-        create_path("fabric")
+        create_path("rdma")

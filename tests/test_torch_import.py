@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks",
              "examples")
 BENCH_MODULES = ("completion_modes", "contention", "host_device_bw",
                  "rdma_analogue", "far_memory", "overlap", "install_path",
-                 "run")
+                 "fabric", "chaos", "run")
 EXAMPLES = ("kernels", "serve_requests")
 
 
@@ -39,7 +39,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.rmem.verbs", "repro_torch.rmem.node",
             "repro_torch.rmem.store", "repro_torch.core.queues",
             "repro_torch.core.descriptors", "repro_torch.access.selector",
-            "repro_torch.access.adapters"} | {
+            "repro_torch.access.adapters", "repro_torch.fabric",
+            "repro_torch.fabric.placement", "repro_torch.fabric.manager",
+            "repro_torch.fabric.sharded_path", "repro_torch.runtime",
+            "repro_torch.runtime.fault", "repro_torch.obs.validate"} | {
         f"repro_torch.benchmarks.{m}" for m in BENCH_MODULES} | {
         f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = ("import sys, importlib\n"
@@ -92,7 +95,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["qdma", "verbs", "auto"])
+@pytest.mark.parametrize("name", ["qdma", "verbs", "auto", "fabric"])
 def test_new_paths_default_to_the_card(monkeypatch, name):
     """The access paths, queue engine and memory nodes default to cuda
     and raise without a card, as every entry point does."""
