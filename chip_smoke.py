@@ -76,15 +76,22 @@ and it stops at the first failing phase with a non-zero exit:
    took); then a dirty round trip through a verbs-backed ``TieredStore``
    of qwen2-0.5b pages: pages updated on the card, evicted dirty, read
    back byte-equal, ``c2h_bytes`` = dirty pages x page size;
-9. fabric phases, each counted: full-width qwen2-0.5b over a sharded KV
-   plane (``--kv-shards 4 --kv-replicas 2 --kv-kill-node 5``) of xdma
-   members, then of verbs members, and recurrentgemma-2b (2100-token
-   prompts, max_len 2304) over ``--kv-shards 2 --kv-replicas 2
-   --kv-kill-node 3`` of xdma members: the unpaged run's tokens, the
-   kill landed with ``repair.lost == 0``, the page kernels launched (the
-   hybrid's flash and rg_lru too); each ``[fabric]`` line prints TTFT
-   and TPOT p50/p99 beside the single-path paged serve's, the repair's
-   seconds, failovers and pages moved.  Then the chaos serve: qwen2-0.5b
+9. fabric phases. First pages written before a kill, read back: eight
+   qwen2-0.5b pages (packed on the card) on a 4-member, 2-replica xdma
+   fabric; ``FabricManager.kill`` repairs one member, each repaired copy
+   is read from its new owner and every page through the survivor ring; a
+   second member is marked failed and every page read again, failing over
+   to its replicas (``failovers > 0``); all byte-equal, the failover batch
+   installed on the card by ``install_pages`` byte-equal to the plain
+   install. Then the serves, each counted: full-width qwen2-0.5b over a
+   sharded KV plane (``--kv-shards 4 --kv-replicas 2 --kv-kill-node 5``)
+   of xdma members, then of verbs members, and recurrentgemma-2b
+   (2100-token prompts, max_len 2304) over ``--kv-shards 2 --kv-replicas 2
+   --kv-kill-node 3`` of xdma members: the unpaged run's tokens, the kill
+   landed with ``repair.lost == 0``, the page kernels launched (the
+   hybrid's flash and rg_lru too); each ``[fabric]`` line prints TTFT and
+   TPOT p50/p99 beside the single-path paged serve's, the repair's
+   seconds, failovers and pages moved. Then the chaos serve: qwen2-0.5b
    over ``--kv-shards 3 --kv-replicas 2`` with ``--fault-seed 7
    --fault-rate 0.05 --fault-corrupt 0.2 --fault-flap 2:12`` against its
    fault-free baseline (equal tokens, nothing shed or undrained; the
@@ -165,6 +172,24 @@ def ptxas_summary(log: str):
     return out
 
 
+def _rand_leaves(layout, gen, batch_shapes: bool):
+    """Random cache leaves of ``layout`` on ``gen``'s device: one slot's
+    (``batch_shapes`` false) or the whole batch's."""
+    import torch
+    from repro_torch.interop import torch_dtype
+    out = []
+    for sp in layout.leaves:
+        shape = sp.batch_shape if batch_shapes else sp.shape
+        dt = torch_dtype(sp.dtype)
+        if dt.is_floating_point:
+            out.append(torch.randn(shape, generator=gen, device=gen.device)
+                       .to(dt))
+        else:
+            out.append(torch.randint(0, 1000, shape, generator=gen,
+                                     device=gen.device, dtype=dt))
+    return out
+
+
 def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
                  G: int = 4) -> dict:
     """Check both page kernels against their plain versions at ``arch``'s
@@ -184,17 +209,7 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
     gen.manual_seed(max_len)
 
     def rand_leaves(batch_shapes: bool):
-        out = []
-        for sp in layout.leaves:
-            shape = sp.batch_shape if batch_shapes else sp.shape
-            dt = torch_dtype(sp.dtype)
-            if dt.is_floating_point:
-                out.append(torch.randn(shape, generator=gen, device=dev)
-                           .to(dt))
-            else:
-                out.append(torch.randint(0, 1000, shape, generator=gen,
-                                         device=dev, dtype=dt))
-        return out
+        return _rand_leaves(layout, gen, batch_shapes)
 
     single = rand_leaves(False)
     pi.pack_page.launches = 0
@@ -794,6 +809,101 @@ def dirty_round_trip(arch: str = "qwen2-0.5b", max_len: int = 128) -> dict:
     return s
 
 
+def fabric_failover_round_trip(arch: str = "qwen2-0.5b", max_len: int = 128,
+                               B: int = 4, n_pages: int = 8) -> dict:
+    """Pages written before a kill, read back on the card.  ``n_pages`` of
+    ``arch``'s KV pages, packed on the card by ``pack_page``, are written
+    to a 4-member, 2-replica fabric of xdma paths.  ``FabricManager.kill``
+    then repairs the member that is primary for the most pages: every
+    copy the repair made is read from its new owner, and every page
+    through the survivor ring.  A second member is marked failed without
+    repair and every page is read again in one batch, its pages failing
+    over to their replicas.  Each read must equal the written bytes; the
+    failover batch is staged to the card through the fabric and installed
+    by ``install_pages``, byte-equal to the plain install of the written
+    pages."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fabric import FabricManager, create_fabric
+    from repro_torch.kernels import page_install as pi
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    layout = pi.page_layout(T.init_cache(cfg, 1, max_len, "meta"),
+                            T.init_cache(cfg, B, max_len, "meta"), B)
+    pb = layout.page_bytes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(n_pages)
+    pages = torch.stack([pi.pack_page(layout, _rand_leaves(layout, gen,
+                                                           False))
+                         for _ in range(n_pages)])
+    host = pages.cpu().numpy()
+    every = list(range(n_pages))
+
+    def busiest():
+        return collections.Counter(fab.ring.owners(p)[0]
+                                   for p in every).most_common(1)[0][0]
+
+    fab = create_fabric(n_pages=n_pages, page_bytes=pb, shards=4,
+                        replicas=2, member="xdma", device="cuda",
+                        n_channels=2)
+    try:
+        fab.write_many(every, list(host))
+        before = {p: set(fab.ring.owners(p)) for p in every}
+        killed = busiest()
+        rep = FabricManager(fab).kill(killed)
+        copies = [(p, n) for p in every for n in fab.ring.owners(p)
+                  if n not in before[p]]
+        assert copies and len(copies) == rep["copies_executed"], \
+            (copies, rep)
+        for p, n in copies:
+            assert np.array_equal(fab.member(n).read_many([p])[0],
+                                  host[p]), f"repaired page {p} on {n}"
+        assert np.array_equal(fab.read_many(every), host), \
+            "a read through the survivor ring differs"
+        down = busiest()
+        fab.mark_failed(down)
+        f0 = fab.failovers
+        order = every[::-1]
+        rows = fab.read_many(order)
+        failovers = fab.failovers - f0
+        assert failovers > 0, "no read failed over"
+        assert np.array_equal(rows, host[order]), "a failover read differs"
+        staged = fab.stage_h2c(rows).wait()
+        base = _rand_leaves(layout, gen, True)
+        pi.install_pages.launches = 0
+        err = 0
+        for g0 in range(0, n_pages, B):
+            got = pi.install_pages(layout, [b.clone() for b in base],
+                                   [(staged, g) for g in range(g0, g0 + B)],
+                                   list(range(B)))
+            want = pi.install_pages_torch(
+                layout, [b.clone() for b in base],
+                [(pages, order[g]) for g in range(g0, g0 + B)],
+                list(range(B)))
+            torch.cuda.synchronize()
+            err = max([err] + [int((g.view(torch.uint8).int() -
+                                    w.view(torch.uint8).int()).abs().max())
+                               for g, w in zip(got, want)])
+        launches = pi.install_pages.launches
+    finally:
+        fab.close()
+    assert err == 0, f"install of the failover reads differs ({err})"
+    assert launches == n_pages // B, launches
+    print(f"[fabric-reads] {arch} max_len={max_len} page={pb}B "
+          f"pages={n_pages} shards=4 replicas=2: killed {killed}, "
+          f"{len(copies)} repaired copies read from their new owners and "
+          f"every page through the survivor ring byte-equal "
+          f"(repair_s={rep['seconds']:.6f}); {down} marked failed: "
+          f"failovers={failovers}, every page byte-equal, installed on "
+          f"the card by install_pages ({launches} launches) byte-equal "
+          f"to the plain install", flush=True)
+    return {"copies": len(copies), "failovers": failovers}
+
+
 def shared_prompts_unpaged(arch: str, prompt_len: int, max_len: int):
     """Outputs of the unpaged engine on the CLI's ``--prefix-share``
     prompts (seed 0, 8 requests, 16 new tokens, 4 slots): sharing off."""
@@ -1169,6 +1279,7 @@ def main() -> int:
     codec_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
                       ("int8", "share"), 2100, 2304)
     dirty_round_trip()
+    fabric_failover_round_trip()
     unpaged = qwen["result"]            # the paged run's = unpaged tokens
     for member in ("xdma", "verbs"):
         fabric_kill_phase("qwen2-0.5b", [], unpaged, member, 4, 5,

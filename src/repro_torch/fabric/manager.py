@@ -227,7 +227,11 @@ class FabricManager:
         checked = 0
         bad: Dict[str, List[int]] = {}
         with obs.span("fabric.scrub", pages=len(pages)):
-            audits = {n: (ps, fabric.member(n).read_many_async(ps))
+            # an audit read that faults while issued is parked by
+            # _issue, so it lands in the except below like any other
+            audits = {n: (ps, fabric._issue(
+                          lambda n=n, ps=ps:
+                              fabric.member(n).read_many_async(ps)))
                       for n, ps in owned.items() if ps}
             for n, (ps, io) in audits.items():
                 try:

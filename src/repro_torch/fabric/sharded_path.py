@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +52,14 @@ from repro_torch.faults.integrity import IntegrityError, PageChecksums
 from repro_torch.faults.retry import RETRIABLE, RetryPolicy
 from repro_torch.fabric.placement import HashRing, PlacementPolicy
 from repro_torch.rmem.backend import PendingIO
+
+
+def _prefailed(exc: BaseException) -> PendingIO:
+    """An eager handle whose join raises ``exc``: a sub-op that failed
+    while it was being issued, joined like one that failed in flight."""
+    def refail(timeout: float):
+        raise exc
+    return PendingIO(refail)
 
 
 class FabricUnavailable(RuntimeError):
@@ -303,6 +311,20 @@ class ShardedPath(TierBackendCompat):
             name, time.perf_counter() - t0, nbytes))
 
     # -- fault-aware replica plumbing (§9) -------------------------------
+    def _issue(self, start: Callable[[], PendingIO]) -> PendingIO:
+        """Start one member sub-op.  A member that completes inline (host
+        memory) raises an injected fault during the issue itself; with
+        fault handling on, that error is parked in a pre-failed handle,
+        so the join counts it as a failed first attempt and retries or
+        fails over exactly as for a fault that surfaces at the join.
+        With fault handling off it propagates, as every fault does."""
+        try:
+            return start()
+        except RETRIABLE as e:
+            if self.retry is None and self.checksums is None:
+                raise
+            return _prefailed(e)
+
     def _rank_owners(self, owners: List[str], nbytes: int,
                      batch: int) -> List[str]:
         if len(owners) <= 1:
@@ -475,7 +497,8 @@ class ShardedPath(TierBackendCompat):
                 ps.append(p)
                 vs.append(v)
         t0 = time.perf_counter()
-        parts = [(n, self._members[n].write_many_async(ps, vs),
+        parts = [(n, self._issue(lambda n=n, ps=ps, vs=vs:
+                                 self._members[n].write_many_async(ps, vs)),
                   sum(int(np.asarray(v).nbytes) for v in vs))
                  for n, (ps, vs) in per.items()]
         for n, io, nbytes in parts:
@@ -539,7 +562,8 @@ class ShardedPath(TierBackendCompat):
             rows.append(row)
             ps.append(p)
         t0 = time.perf_counter()
-        parts = [(n, rows, self._members[n].read_many_async(ps),
+        parts = [(n, rows, self._issue(lambda n=n, ps=ps:
+                                       self._members[n].read_many_async(ps)),
                   len(ps) * self.page_bytes)
                  for n, (rows, ps) in groups.items()]
         for n, _, io, nbytes in parts:
@@ -598,7 +622,12 @@ class ShardedPath(TierBackendCompat):
             raise QuorumError(f"page {page}: {len(owners)} alive replicas "
                               f"< quorum {need}")
         self.quorum_reads += 1
-        ios = [self._members[n].read_many_async([page]) for n in owners]
+        ios = []
+        for n in owners:
+            try:
+                ios.append(self._members[n].read_many_async([page]))
+            except RETRIABLE as e:
+                ios.append(_prefailed(e))   # it can't vote, as below
         votes: Dict[bytes, int] = {}
         results: Dict[bytes, np.ndarray] = {}
         for c in as_completed(ios, timeout):

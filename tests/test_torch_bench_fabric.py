@@ -5,6 +5,7 @@ reference's order, with its derived fields, its JSON keys and its
 failover, the rebalance's moved fraction) equal the reference's, and
 every gate the reference holds holds in the port; and ``run.py`` takes
 both modules with their ``--fabric-json`` and ``--chaos-json``."""
+import itertools
 import json
 import re
 
@@ -66,7 +67,16 @@ def test_fabric_smoke_rows_and_gates_match_reference(tmp_path):
             assert g[gate], gate
 
 
-def test_chaos_smoke_rows_and_gates_match_reference(tmp_path):
+def test_chaos_smoke_rows_and_gates_match_reference(tmp_path, monkeypatch):
+    # fault draws follow the scope names, which come from process-wide
+    # counters: both packages start theirs at 0 (tests/test_torch_chaos.py)
+    from repro.rmem import backend as ref_backend
+    from repro.rmem import node as ref_node
+    from repro_torch.rmem import backend as port_backend
+    from repro_torch.rmem import node as port_node
+    for cls in (ref_node.MemoryNode, port_node.MemoryNode,
+                ref_backend.LocalHostBackend, port_backend.LocalHostBackend):
+        monkeypatch.setattr(cls, "_scope_ids", itertools.count())
     want, got, (ref_rows, port_rows), (rj, pj) = _run_both(
         ref_chaos, chaos, tmp_path, ["--smoke", "--device", "cpu"])
     names = ["chaos_xdma_faults", "chaos_verbs_faults",

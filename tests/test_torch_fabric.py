@@ -6,6 +6,7 @@ pages and the same op sequence, their deterministic counters and repair
 plans compared; and the serve CLI's sharded kill run gives the
 reference's tokens and result keys at every level."""
 import dataclasses
+import itertools
 import re
 import threading
 
@@ -464,6 +465,133 @@ def test_one_retry_layer_lives_in_the_fabric():
     assert eng.fabric is None and eng.pager.retry is pol
     assert eng.pager.checksums is not None
     eng.close()
+
+
+# A host-memory member completes inline, so an injected fault raises
+# while the member's sub-op is being issued.  The port parks it and lets
+# the fault-handling join retry or fail over; the reference's issue
+# raises straight out of the batched call (ROADMAP C).
+FT_MODES = {"retry": (True, False), "checksums": (False, True),
+            "both": (True, True)}
+
+
+def _issue_fault_setup(pkg, monkeypatch, mode, n_pages=16):
+    from repro.faults import retry as ref_retry
+    from repro.rmem import backend as ref_backend
+    from repro_torch.faults import retry as port_retry
+    from repro_torch.rmem import backend as port_backend
+    for mod in (ref_backend.LocalHostBackend,
+                port_backend.LocalHostBackend):
+        monkeypatch.setattr(mod, "_scope_ids", itertools.count())
+    retry, integrity = FT_MODES[mode]
+    make, pol, kw = ((ref_path, ref_retry.RetryPolicy, {}) if pkg == "ref"
+                     else (port_path, port_retry.RetryPolicy,
+                           {"device": "cpu"}))
+    fab = make("fabric", member="xdma", shards=4, replicas=2,
+               n_pages=n_pages, page_bytes=64, n_channels=1,
+               retry=pol(seed=1) if retry else None, integrity=integrity,
+               **kw)
+    bad = fab.member_names[1]
+    # route every read of a page that ``bad`` owns to ``bad``, so the
+    # injected faults are hit whatever the measured latencies say
+    pick = fab._pick_reader
+    monkeypatch.setattr(fab, "_pick_reader", lambda p, nbytes, batch:
+                        bad if bad in fab._owners(p)
+                        else pick(p, nbytes, batch))
+    return fab, bad
+
+
+def _plan(inj, fab, bad, kind):
+    from repro_torch.launch.serve import _fault_scopes
+    scopes = _fault_scopes(fab.member(bad))
+    if kind == "flap":
+        return inj.FaultPlan(seed=3, flaps={scopes[0]: [(0, 10**6)]})
+    return inj.FaultPlan(seed=3, error_rate=0.5, only_scopes=scopes)
+
+
+@pytest.mark.parametrize("kind", ["flap", "errors"])
+@pytest.mark.parametrize("mode", list(FT_MODES))
+def test_batched_read_survives_issue_time_faults_on_one_member(
+        monkeypatch, mode, kind):
+    from repro_torch.faults import injector as inj
+    fab, bad = _issue_fault_setup("port", monkeypatch, mode)
+    with fab:
+        v = _vals(16, 64, seed=5)
+        fab.write_many_async(list(v), list(v.values())).wait()
+        order = list(np.random.default_rng(2).permutation(16))
+        plan = inj.install(_plan(inj, fab, bad, kind))
+        try:
+            got = fab.read_many_async(order).wait()
+        finally:
+            inj.uninstall()
+        for row, p in enumerate(order):
+            np.testing.assert_array_equal(got[row], v[p])
+        hit = plan.snapshot()
+        assert hit["flap_rejections" if kind == "flap" else "errors"] > 0
+        retried = fab.retry.stats()["retries"] if fab.retry else 0
+        assert fab.failovers > 0 or retried > 0
+
+
+@pytest.mark.parametrize("mode", list(FT_MODES))
+def test_batched_write_survives_a_member_down_at_issue(monkeypatch, mode):
+    from repro.faults import injector as ref_inj
+    from repro.faults.retry import TransientIOError as RefTransient
+    from repro_torch.faults import injector as inj
+    v = _vals(16, 64, seed=6)
+    fab, bad = _issue_fault_setup("port", monkeypatch, mode)
+    with fab:
+        inj.install(_plan(inj, fab, bad, "flap"))
+        try:
+            fab.write_many_async(list(v), list(v.values())).wait()
+            got = fab.read_many(list(v))
+        finally:
+            inj.uninstall()
+        np.testing.assert_array_equal(got, np.stack(list(v.values())))
+        assert fab.degraded_writes > 0 and fab.under_replicated_pages
+    # the reference raises out of the same batched write while issuing it
+    ref, rbad = _issue_fault_setup("ref", monkeypatch, mode)
+    with ref:
+        ref_inj.install(_plan(ref_inj, ref, rbad, "flap"))
+        try:
+            with pytest.raises(RefTransient):
+                ref.write_many_async(list(v), list(v.values()))
+        finally:
+            ref_inj.uninstall()
+
+
+def test_quorum_read_outvotes_a_member_down_at_issue(monkeypatch):
+    from repro_torch.faults import injector as inj
+    from repro_torch.rmem.backend import LocalHostBackend
+    monkeypatch.setattr(LocalHostBackend, "_scope_ids", itertools.count())
+    fab = port_path("fabric", member="xdma", shards=4, replicas=3,
+                    n_pages=8, page_bytes=64, n_channels=1, device="cpu")
+    with fab:
+        v = _vals(8, 64, seed=8)
+        fab.write_many(list(v), list(v.values()))
+        bad = fab.member_names[2]
+        mine = [p for p in v if bad in fab.ring.owners(p)]
+        plan = inj.install(_plan(inj, fab, bad, "flap"))
+        try:
+            for p in mine:
+                np.testing.assert_array_equal(fab.read_quorum(p), v[p])
+        finally:
+            inj.uninstall()
+        assert mine and plan.snapshot()["flap_rejections"] == len(mine)
+
+
+def test_issue_time_fault_propagates_without_fault_handling(monkeypatch):
+    from repro_torch.faults import injector as inj
+    from repro_torch.faults.retry import NodeUnavailable
+    fab = port_path("fabric", member="xdma", shards=4, replicas=2,
+                    n_pages=16, page_bytes=64, n_channels=1, device="cpu")
+    with fab:
+        v = _vals(16, 64, seed=7)
+        inj.install(_plan(inj, fab, fab.member_names[1], "flap"))
+        try:
+            with pytest.raises(NodeUnavailable):
+                fab.write_many_async(list(v), list(v.values()))
+        finally:
+            inj.uninstall()
 
 
 @pytest.fixture(scope="module")
