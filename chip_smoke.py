@@ -100,30 +100,53 @@ and it stops at the first failing phase with a non-zero exit:
    ``--metrics``, its trace passing ``repro_torch.obs.validate`` with the
    serve, tier, fabric and path layers and the ``fabric.fail`` and
    ``serve.kill`` instants;
-10. bench phase: ``repro_torch.benchmarks.run --quick`` on the card (the
+10. fleet phases (the serving frontend), each serve counted and its
+   ``[fleet]`` line printing TTFT, TPOT and queue-wait p50/p99, goodput
+   in tokens per fleet virtual second and the rounds: full-width
+   qwen2-0.5b (max_len 128) on ``--replicas 2 --tenants 2 --slots 2
+   --arrivals burst``, 8 requests, paged over one shared xdma path, then
+   the same with ``--kill-replica 2`` (requests re-routed, replica1
+   killed), each with the tokens of one paged 2-slot engine serving the
+   same ``Workload.requests``; the same fleet over a shared 3-member,
+   2-replica fabric with ``--arrivals poisson:100``, calm and with
+   ``--kv-kill-node 4 --kill-replica 8`` (equal tokens on the rids both
+   serve, nothing lost); a 12-request burst on one replica, then under an
+   SLO of the baseline's queue-wait p50 (every shed request without a
+   token and with an ``slo`` reason, every served one with the
+   baseline's tokens; the shed count and TTFT p99s printed, not held);
+   full-width recurrentgemma-2b (max_len 512, 6 requests, 2 replicas,
+   ``--kill-replica 3``) with one engine's tokens.  Pack, install and
+   flash must launch, and rg_lru for the hybrid;
+11. bench phase: ``repro_torch.benchmarks.run --quick`` on the card (the
    paper's channel, contention, completion, RDMA-analogue, far-memory,
-   overlap, fabric, chaos and install benchmarks; far-memory's
+   overlap, fabric, chaos, serving-SLO, install and KV-capacity
+   benchmarks; far-memory's
    path-selection sweep and full-width qwen2-0.5b serves over every
-   access path, the chaos soak's full-width qwen2-0.5b serves, with
-   their JSON under ``chiprun_out/bench``), then the kernel tour
+   access path, the full-width qwen2-0.5b serves of the chaos soak,
+   ``serve_slo`` and ``kv_capacity``, with their JSON under
+   ``chiprun_out/bench``), then the kernel tour
    (``repro_torch.examples.kernels``) and the serving example
    (full-width recurrentgemma-2b), each counted.  Every byte check of a
    round trip raises inside the modules; held here are install parity,
    overlap ``bit_exact``, ``all_match_model``, every access path giving
    the verbs run's tokens, clean evictions moving 0 bytes and dirty ones
    exactly their pages' bytes, the fabric sweep bit-exact with no page
-   lost, and the chaos soak bit-exact with its replicated cells shedding
-   nothing.  Speed ratios are printed, not held;
-11. reference check: at the smoke size in float32, qwen2-0.5b's and
+   lost, the chaos soak bit-exact with its replicated cells shedding
+   nothing, ``serve_slo``'s ``kill_bit_exact`` and ``kv_capacity``'s
+   ``bitexact_bf16`` and ``bitexact_share``.  Speed and policy ratios
+   (``ok_replicas``, ``ok_slo``, ``share_admit_uplift``) are printed,
+   not held;
+12. reference check: at the smoke size in float32, qwen2-0.5b's and
    recurrentgemma-2b's prefill logits on the card agree with the CPU's
    within 1e-4 (the hybrid prompt of 40 tokens overruns its window of
    32);
 
 Every kernel launch count is zeroed just before each counted run (the
 paged serves over every access path, the capacity serves, the fabric,
-chaos and trace serves, the Fig-8 sweep, the bench phase's benchmarks
-and examples) and read just after;
-the ``kernels`` line sums them.  Last it prints the card line, the
+chaos, trace and fleet serves, the Fig-8 sweep, the bench phase's
+benchmarks and examples) and read just after;
+the ``kernels`` line sums them, and gives the fleet serves' share as
+``fleet_launches``.  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
 from __future__ import annotations
@@ -1087,6 +1110,200 @@ def trace_phase(base: dict) -> dict:
     return info
 
 
+# launches summed over the counted fleet serves (each from 0)
+FLEET_LAUNCHES = {}
+
+
+def _fleet_line(res: dict) -> str:
+    lat, fl = res["latency"], res["fleet"]
+    q = lat["queue_wait_s"]
+    return (f"{_lat_line(res)} "
+            f"queue_wait_p50_ms={q['p50'] * 1e3:.2f} "
+            f"queue_wait_p99_ms={q['p99'] * 1e3:.2f} "
+            f"goodput_tok_per_vs={fl['goodput_tok_per_vs']:.2f} "
+            f"rounds={fl['rounds']} "
+            f"virtual_s={fl['virtual_seconds']:.4f}")
+
+
+def fleet_counted(run):
+    res, launches = counted(run)
+    for name, n in launches.items():
+        FLEET_LAUNCHES[name] = FLEET_LAUNCHES.get(name, 0) + n
+    return res, launches
+
+
+def fleet_single_engine(arch: str, n: int, max_len: int, spec: str,
+                        slots: int = 2, tenants: int = 2) -> dict:
+    """Tokens of one paged xdma ``ServeEngine`` with ``slots`` slots on
+    the fleet CLI's requests (the seed-0 ``Workload`` of ``tenants``
+    tenants) and the CLI's weights (seed 0)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (ServeEngine, Workload,
+                                     default_tenants, parse_arrivals)
+
+    cfg = get_config(arch)
+    params = T.tree_init(T.param_defs(cfg), cfg, 0, "cuda")
+    wl = Workload(parse_arrivals(spec), default_tenants(tenants, max_len),
+                  max_len, seed=0)
+    eng = ServeEngine(cfg, params, batch_slots=slots, max_len=max_len,
+                      access_path="xdma", device="cuda")
+    for _, req in wl.requests(wl.schedule(n), cfg.vocab):
+        eng.submit(req)
+    assert eng.run_until_drained() == 0
+    eng.close()
+    out = {r.rid: list(r.out_tokens) for r in eng.done if r.failed is None}
+    assert sorted(out) == list(range(n)), sorted(out)
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_serve(label: str, argv, single: dict, needs,
+                n: int) -> dict:
+    """One counted fleet serve through the CLI: every request served,
+    nothing undrained, the single engine's tokens per request id, and the
+    kernels of ``needs`` launched."""
+    from repro_torch.launch import serve
+
+    res, launches = fleet_counted(lambda: serve.main(argv))
+    fl = res["fleet"]
+    print(f"[fleet] {label} launches={launches} install={res['install']} "
+          f"{_fleet_line(res)} rerouted={fl['rerouted']} "
+          f"killed_replicas={fl['killed_replicas']} "
+          f"routed={ {k: v['routed'] for k, v in fl['per_replica'].items()} }",
+          flush=True)
+    assert res["requests"] == n and res["undrained"] == 0, res["rejected"]
+    assert all(launches[k] > 0 for k in needs), (needs, launches)
+    if single is not None:
+        assert res["outputs"] == single, \
+            f"{label}: the fleet changed the tokens"
+    return res
+
+
+def fleet_slo_phase(n: int = 12) -> dict:
+    """A ``n``-request burst on one replica (2 slots), then the same burst
+    under an ``AdmissionController`` whose TTFT deadline is the
+    baseline's queue-wait p50, both through ``FleetRouter`` as the CLI
+    builds it.  Held: every shed request has no token and a reason
+    starting ``slo``, every served one the baseline's tokens.  Printed,
+    not held: the shed count and both TTFT p99s (timing)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (AdmissionController, FleetRouter,
+                                     Workload, default_tenants,
+                                     parse_arrivals)
+
+    cfg = get_config("qwen2-0.5b")
+    params = T.tree_init(T.param_defs(cfg), cfg, 0, "cuda")
+    out = {}
+    for mode in ("baseline", "policy"):
+        slo_s = None if mode == "baseline" else out["slo_s"]
+        tenants = default_tenants(2, 128, slo_ttft_s=slo_s)
+        wl = Workload(parse_arrivals("burst"), tenants, 128, seed=0)
+        fr = FleetRouter.build(
+            cfg, params, replicas=1, batch_slots=2, max_len=128,
+            access_path="xdma", device="cuda",
+            admission_factory=lambda: AdmissionController(
+                slo_ttft_s=slo_s))
+        _, launches = fleet_counted(lambda: fr.run_open_loop(
+            wl.requests(wl.schedule(n), cfg.vocab)))
+        done = fr.done_requests()
+        st = fr.stats()
+        q = fr.merged_hist("queue_wait_hist").summary()
+        ttft = fr.merged_hist("ttft_hist").summary()
+        tpot = fr.merged_hist("tpot_hist").summary()
+        fr.close()
+        served = {r.rid: list(r.out_tokens) for r in done
+                  if r.failed is None}
+        shed = [r for r in done if r.failed is not None]
+        print(f"[fleet] slo {mode} qwen2-0.5b 1 replica {n} requests "
+              f"slo_ms={None if slo_s is None else round(slo_s * 1e3, 3)} "
+              f"served={len(served)} shed={len(shed)} launches={launches} "
+              f"ttft_p50_ms={ttft['p50'] * 1e3:.2f} "
+              f"ttft_p99_ms={ttft['p99'] * 1e3:.2f} "
+              f"tpot_p50_ms={tpot['p50'] * 1e3:.2f} "
+              f"tpot_p99_ms={tpot['p99'] * 1e3:.2f} "
+              f"queue_wait_p50_ms={q['p50'] * 1e3:.2f} "
+              f"queue_wait_p99_ms={q['p99'] * 1e3:.2f} "
+              f"goodput_tok_per_vs={st['goodput_tok_per_vs']:.2f} "
+              f"rounds={st['rounds']}", flush=True)
+        assert len(served) + len(shed) == n and st["served"] == len(served)
+        if mode == "baseline":
+            assert not shed and sorted(served) == list(range(n)), shed
+            out.update(base=served, slo_s=max(q["p50"], 1e-3),
+                       base_ttft_p99=ttft["p99"])
+        else:
+            for r in shed:
+                assert r.failed.startswith("slo") and r.out_tokens == [], \
+                    (r.rid, r.failed, r.out_tokens)
+            for rid, toks in served.items():
+                assert toks == out["base"][rid], \
+                    f"slo: request {rid} changed its tokens"
+            out.update(shed=len(shed), policy_ttft_p99=ttft["p99"])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_phases() -> None:
+    """The serving frontend on the card, each fleet serve counted:
+    full-width qwen2-0.5b (max_len 128, 2 slots a replica, 2 replicas, 2
+    tenants, a burst of 8) against one paged engine with 2 slots; the
+    same with ``--kill-replica 2``; the kill scenario of ``serve_slo``
+    over a shared 3-member, 2-replica fabric, calm and then with
+    ``--kv-kill-node 4 --kill-replica 8``; SLO shedding under a
+    saturating burst; full-width recurrentgemma-2b (max_len 512, 6
+    requests, ``--kill-replica 3``) against one engine."""
+    page_kernels = ("pack_page", "install_pages")
+    qargs = ["--max-len", "128", "--slots", "2", "--replicas", "2",
+             "--tenants", "2", "--requests", "8", "--device", "cuda",
+             "--kv-paging"]
+    single = fleet_single_engine("qwen2-0.5b", 8, 128, "burst")
+    fleet_serve("qwen2-0.5b burst 2 replicas",
+                qargs + ["--arrivals", "burst"], single,
+                page_kernels + ("flash_attention",), 8)
+    kill = fleet_serve("qwen2-0.5b burst 2 replicas --kill-replica 2",
+                       qargs + ["--arrivals", "burst", "--kill-replica",
+                                "2"], single, page_kernels, 8)
+    assert kill["fleet"]["rerouted"] > 0, kill["fleet"]
+    assert kill["fleet"]["killed_replicas"] == ["replica1"], kill["fleet"]
+    fab = qargs + ["--arrivals", "poisson:100", "--kv-shards", "3",
+                   "--kv-replicas", "2"]
+    calm = fleet_serve("qwen2-0.5b poisson:100 fabric 3x2 calm", fab,
+                       single, page_kernels, 8)
+    hit = fleet_serve("qwen2-0.5b poisson:100 fabric 3x2 --kv-kill-node 4 "
+                      "--kill-replica 8",
+                      fab + ["--kv-kill-node", "4", "--kill-replica", "8"],
+                      None, page_kernels, 8)
+    common = set(calm["outputs"]) & set(hit["outputs"])
+    assert common and all(calm["outputs"][k] == hit["outputs"][k]
+                          for k in common), "fabric kill changed tokens"
+    fb = hit["fabric"]
+    print(f"[fleet] fabric kill: killed={fb['killed']} "
+          f"kill_round={fb['kill_round']} lost={fb['repair']['lost']} "
+          f"repair_s={fb['repair']['seconds']:.6f} "
+          f"moved_pages={fb['repair']['moved_pages']} "
+          f"failovers={fb['failovers']} epoch={fb['epoch']} "
+          f"common={len(common)}", flush=True)
+    assert fb["killed"] is not None and fb["repair"]["lost"] == 0, fb
+    slo = fleet_slo_phase()
+    print(f"[fleet] slo not held: shed={slo['shed']} ttft_p99_ms "
+          f"baseline={slo['base_ttft_p99'] * 1e3:.2f} "
+          f"policy={slo['policy_ttft_p99'] * 1e3:.2f}", flush=True)
+    hsingle = fleet_single_engine("recurrentgemma-2b", 6, 512, "burst")
+    fleet_serve("recurrentgemma-2b burst 2 replicas --kill-replica 3",
+                ["--arch", "recurrentgemma-2b", "--max-len", "512",
+                 "--slots", "2", "--replicas", "2", "--tenants", "2",
+                 "--requests", "6", "--device", "cuda", "--kv-paging",
+                 "--arrivals", "burst", "--kill-replica", "3"], hsingle,
+                page_kernels + ("flash_attention", "rg_lru_scan"), 6)
+    print(f"[fleet] launches over the fleet serves: {FLEET_LAUNCHES}",
+          flush=True)
+
+
 def bench_phase() -> dict:
     """This slice's path: ``repro_torch.benchmarks.run --quick`` on the
     card (every module; far-memory's path-selection sweep and serves and
@@ -1111,7 +1328,10 @@ def bench_phase() -> dict:
          "--select-json", os.path.join(out, "BENCH_path_select.json"),
          "--install-json", os.path.join(out, "BENCH_install_path.json"),
          "--fabric-json", os.path.join(out, "BENCH_fabric.json"),
-         "--chaos-json", os.path.join(out, "BENCH_chaos.json")]))
+         "--chaos-json", os.path.join(out, "BENCH_chaos.json"),
+         "--serve-slo-json", os.path.join(out, "BENCH_serve_slo.json"),
+         "--kv-capacity-json", os.path.join(out,
+                                            "BENCH_kv_capacity.json")]))
     print(f"[bench] benchmarks.run --quick launches={launches}", flush=True)
     assert all(launches[n] > 0 for n in ("pack_page", "install_pages",
                                          "flash_attention", "stream_copy")), \
@@ -1138,13 +1358,32 @@ def bench_phase() -> dict:
         assert r["served"] + r["shed"] == 8, r
         if r["replicas"] > 1:
             assert r["shed"] == 0, r
+    slo = res["serve_slo"]
+    assert slo["kill_bit_exact"] is True, slo
+    kvc = res["kv_capacity"]["gate"]
+    assert kvc["bitexact_bf16"] is True, kvc
+    assert kvc["bitexact_share"] is True, kvc
     print(f"[bench] held: install parity, overlap bit_exact, "
           f"all_match_model, every path gives verbs' tokens, "
           f"{len(fm['dirty_sweep'])} eviction rows (clean 0 B, dirty = "
           f"pages x {far_memory.DIRTY_PAGE_BYTES} B), fabric bit_exact "
           f"with 0 pages lost and a moved fraction of "
           f"{fab['rebalance']['moved_fraction']:.3f}, chaos bit_exact "
-          f"with the replicated cells shedding nothing", flush=True)
+          f"with the replicated cells shedding nothing, serve_slo "
+          f"kill_bit_exact, kv_capacity bitexact_bf16 and bitexact_share",
+          flush=True)
+    print(f"[bench] serve_slo: ok_replicas={slo['ok_replicas']} "
+          f"scaling_2_vs_1={slo['scaling_2_vs_1']:.3f}x "
+          f"goodput_1={slo['goodput_1']:.2f} goodput_2="
+          f"{slo['goodput_2']:.2f} tok/vs | ok_slo={slo['ok_slo']} "
+          f"slo_ms={slo['slo_ms']:.2f} shed_slo={slo['shed_slo']} "
+          f"ttft_p99_ms baseline={slo['baseline_ttft_p99_s'] * 1e3:.2f} "
+          f"policy={slo['policy_ttft_p99_s'] * 1e3:.2f} | kill "
+          f"rerouted={slo['rerouted']} ttft_p99_ms="
+          f"{slo['kill_ttft_p99_s'] * 1e3:.2f} | kv_capacity "
+          f"share_admit_uplift={kvc['share_admit_uplift']:.2f}x "
+          f"int8_spill_ratio={kvc['int8_spill_ratio']:.3f} (not held)",
+          flush=True)
     print(f"[bench] fabric: scaling_4_vs_1={fab['scaling_4_vs_1']:.3f}x "
           f"shards1_vs_baseline={fab['shards1_vs_baseline']:.3f} "
           f"failover repair_s={fab['failover']['repair_s']:.4f} "
@@ -1289,13 +1528,14 @@ def main() -> int:
                       page_kernels + ("flash_attention", "rg_lru_scan"))
     chaos_phase(unpaged)
     trace_phase(unpaged)
+    fleet_phases()
     bench_phase()
     reference_check("qwen2-0.5b", 12, 32)
     reference_check("recurrentgemma-2b", 40, 64)
 
     # launches: summed over every counted run (the paged serves over
     # every access path, the codec and prefix-share serves, the fabric,
-    # chaos and trace serves, the Fig-8 sweep, the benchmarks and
+    # chaos, trace and fleet serves, the Fig-8 sweep, the benchmarks and
     # examples of the bench phase), each from 0
     launches = LAUNCHES
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
@@ -1343,6 +1583,9 @@ def main() -> int:
                    "n_buffers": sc["n_buffers"]},
          "library_note": "Tensor.copy_ into a preallocated tensor"},
     ]
+    for k in kernels:
+        # the part of ``launches`` the fleet serves made
+        k["fleet_launches"] = FLEET_LAUNCHES.get(k["name"], 0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,9 @@ artifacts by default, as the reference's CI smoke does.
 Ported: ``vmem_stream`` (Fig 8), ``host_device_bw`` (Figs 9-10,
 15-18), ``contention`` (Figs 11-12), ``completion_modes`` (Figs
 13-14), ``rdma_analogue`` (Figs 19-20), ``far_memory``, ``overlap``,
-``fabric``, ``chaos`` and ``install_path``.  Not ported yet, with the
-ROADMAP A item that brings each: ``serve_slo`` and ``kv_capacity``
-(A.4), ``offload_step`` and ``e2e_step`` (A.6).
+``fabric``, ``chaos``, ``serve_slo``, ``install_path`` and
+``kv_capacity``.  Not ported yet, with the ROADMAP A item that brings
+them: ``offload_step`` and ``e2e_step`` (A.6).
 
 ``main`` returns each module's result by name and exits non-zero when a
 module raised (every byte check of the modules raises).
@@ -32,8 +32,9 @@ import traceback
 from repro_torch import obs
 from repro_torch.benchmarks import (chaos, common, completion_modes,
                                     contention, fabric, far_memory,
-                                    host_device_bw, install_path, overlap,
-                                    rdma_analogue, vmem_stream)
+                                    host_device_bw, install_path,
+                                    kv_capacity, overlap, rdma_analogue,
+                                    serve_slo, vmem_stream)
 from repro_torch.device import resolve_device
 
 MODULES = [
@@ -46,7 +47,9 @@ MODULES = [
     ("serve_overlap", overlap),
     ("fabric_sweep", fabric),
     ("chaos_soak", chaos),
+    ("serve_slo", serve_slo),
     ("install_path", install_path),
+    ("kv_capacity", kv_capacity),
 ]
 
 
@@ -69,10 +72,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--chaos-json", default="",
                     help="chaos soak JSON path (chaos module); "
                          "defaults to BENCH_chaos.json with --smoke")
+    ap.add_argument("--serve-slo-json", default="",
+                    help="serving SLO bench JSON path (serve_slo "
+                         "module); defaults to BENCH_serve_slo.json "
+                         "with --smoke")
     ap.add_argument("--install-json", default="",
                     help="install-path bench JSON path (install_path "
                          "module); defaults to BENCH_install_path.json "
                          "with --smoke")
+    ap.add_argument("--kv-capacity-json", default="",
+                    help="KV capacity-multipliers bench JSON path "
+                         "(kv_capacity module); defaults to "
+                         "BENCH_kv_capacity.json with --smoke")
     ap.add_argument("--seed", type=int, default=0,
                     help="RNG seed of every benchmark's data, recorded in "
                          "every BENCH_*.json")
@@ -101,8 +112,12 @@ def main(argv=None) -> dict:
                                       if args.smoke else "")
     chaos_out = args.chaos_json or ("BENCH_chaos.json"
                                     if args.smoke else "")
+    serve_slo_out = args.serve_slo_json or ("BENCH_serve_slo.json"
+                                            if args.smoke else "")
     install_out = args.install_json or ("BENCH_install_path.json"
                                         if args.smoke else "")
+    kv_capacity_out = args.kv_capacity_json or ("BENCH_kv_capacity.json"
+                                                if args.smoke else "")
 
     if dev.type == "cuda":
         print(f"# card: {common.card_line()}", flush=True)
@@ -122,6 +137,10 @@ def main(argv=None) -> dict:
             kw.update(out=fabric_out)
         elif mod is chaos:
             kw.update(out=chaos_out, smoke=args.smoke)
+        elif mod is serve_slo:
+            kw.update(out=serve_slo_out, smoke=args.smoke)
+        elif mod is kv_capacity:
+            kw.update(out=kv_capacity_out, smoke=args.smoke)
         elif mod is overlap:
             kw.update(smoke=args.smoke)
         try:

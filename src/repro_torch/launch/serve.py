@@ -1,11 +1,11 @@
-"""Serve CLI of the port: the single-engine closed-loop path.
+"""Serve CLI of the port: one engine closed-loop, or the fleet frontend.
 
-Twin of the legacy path of ``repro/launch/serve.py``: the same flags
-(those this slice ports), the same seeded prompts, and the same result
-dict, ``outputs`` included.  Weights are initialised on the device from
-``--seed`` with a ``torch.Generator`` (the reference's init rules, not
-its numbers).  ``--device`` defaults to ``cuda``, which raises without a
-card; ``--device cpu`` runs on the CPU.
+Twin of ``repro/launch/serve.py``: the same flags, the same seeded
+prompts and workloads, and the same result dict, ``outputs`` included.
+Weights are initialised on the device from ``--seed`` with a
+``torch.Generator`` (the reference's init rules, not its numbers).
+``--device`` defaults to ``cuda``, which raises without a card;
+``--device cpu`` runs on the CPU.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --max-new 16 [--kv-paging] \
@@ -15,6 +15,9 @@ card; ``--device cpu`` runs on the CPU.
         [--kv-shards 4 --kv-replicas 2 --kv-kill-node 5] \
         [--fault-seed 7 --fault-rate 0.05 --fault-corrupt 0.2 \
          --fault-flap 2:12] [--trace-out T.json] [--metrics] \
+        [--arrivals poisson:8 --tenants 3 --replicas 2 \
+         --slo-ttft-ms 200 --quota-tokens 256 --deadline-s 30 \
+         --kill-replica 8 --prefix-share-ratio 0.5] \
         [--device cpu --smoke]
 
 ``--access-path``, ``--kv-codec``, ``--prefix-share``, ``--kv-shards``
@@ -26,11 +29,24 @@ each memory node's or host backend's fault scope) with a ``RetryPolicy``
 and page checksums; ``--fault-flap LO:HI`` takes the last scope of the
 path tree down for its ops LO to HI.  The result then holds ``faults``;
 a sharded run holds ``fabric``; ``--metrics`` embeds the registry
-snapshot as ``metrics`` and ``--trace-out`` writes a Chrome trace.  The
-fleet frontend (``--arrivals``, ``--replicas``, ...) is ROADMAP A.4.  With
+snapshot as ``metrics`` and ``--trace-out`` writes a Chrome trace.  With
 ``--prefix-share`` every prompt opens with one seeded prefix of half its
 length, drawn as the reference draws it, so the same seed gives the
 reference's prompts.
+
+Any of ``--arrivals``, ``--tenants N>1``, ``--replicas N>1``,
+``--slo-ttft-ms``, ``--quota-tokens``, ``--deadline-s`` or
+``--kill-replica`` selects the fleet path (``_main_fleet``): a seeded
+``Workload`` (``--tenants`` mixes over the ``configs`` zoo; the mixes
+draw prompt and decode lengths, so ``--prompt-len`` and ``--max-new``
+are not read) drives a ``FleetRouter`` of ``--replicas`` engines, each
+under its own ``AdmissionController``, over one shared KV plane (a
+path, or a fabric with ``--kv-shards``).  ``--kill-replica ROUND`` kills
+the last replica at that fleet round and re-routes its requests;
+``--kv-kill-node`` fails a fabric member at a round.  The result adds
+``fleet``, ``admission``, ``workload`` and ``goodput_tok_per_vs``
+(served tokens over the fleet's virtual seconds, which charge the
+slowest replica's step wall time per round).
 """
 from __future__ import annotations
 
@@ -48,8 +64,10 @@ from repro_torch.faults import injector as _faults
 from repro_torch.faults.injector import FaultPlan
 from repro_torch.faults.retry import RetryPolicy
 from repro_torch.models import transformer as T
-from repro_torch.serving.engine import (_KV_BACKEND_ALIAS, Request,
-                                        ServeEngine, summarize_requests)
+from repro_torch.serving import (AdmissionController, FleetRouter, Request,
+                                 ServeEngine, Workload, default_tenants,
+                                 parse_arrivals, summarize_requests)
+from repro_torch.serving.engine import _KV_BACKEND_ALIAS
 
 __all__ = ["Request", "ServeEngine", "main"]
 
@@ -183,6 +201,10 @@ def main(argv=None) -> dict:
                          "prefix against one read-only base page "
                          "(copy-on-write deltas; implies --kv-paging); "
                          "output is bit-exact with sharing off")
+    ap.add_argument("--prefix-share-ratio", type=float, default=0.5,
+                    help="fleet path: fraction of each tenant's requests "
+                         "that open with the tenant's shared system "
+                         "prompt")
     ap.add_argument("--fault-seed", type=int, default=None,
                     help="install a deterministic FaultPlan with this "
                          "seed (implies --kv-paging; same seed + "
@@ -208,6 +230,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--metrics", action="store_true",
                     help="enable live metrics and embed a registry "
                          "snapshot in the result dict")
+    # the serving frontend: any of these flags selects the fleet path
+    ap.add_argument("--arrivals", default=None, metavar="SPEC",
+                    help="open-loop arrival process: burst | poisson:R "
+                         "| bursty:R[:BURST[:CALM]] | "
+                         "diurnal:R[:PERIOD[:DEPTH]] (R = requests per "
+                         "second of fleet virtual time)")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="number of tenants; mixes are drawn per tenant "
+                         "over the configs zoo's traffic shapes, tenant 0 "
+                         "highest priority")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas sharing one memory plane, "
+                         "behind a least-outstanding-work router with "
+                         "tenant affinity")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="TTFT deadline: admission sheds a request early "
+                         "(failed='slo') when its predicted TTFT exceeds "
+                         "it")
+    ap.add_argument("--quota-tokens", type=int, default=None,
+                    help="per-tenant in-flight token quota (prompt + "
+                         "decode budget of admitted, unfinished requests)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="wall-clock drain budget (beside the step "
+                         "budget)")
+    ap.add_argument("--kill-replica", type=int, default=None,
+                    metavar="ROUND",
+                    help="kill the last replica at this fleet round and "
+                         "re-route its requests to the survivors "
+                         "(requires --replicas >= 2)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda raises without "
                          "a card; pass cpu to run on the CPU)")
@@ -248,6 +299,16 @@ def main(argv=None) -> dict:
         cfg = reduce_for_smoke(cfg)
     params = T.tree_init(T.param_defs(cfg), cfg, args.seed, device)
     retry_policy = RetryPolicy(seed=fault_seed) if faults_on else None
+
+    fleet_mode = (args.replicas > 1 or args.arrivals is not None or
+                  args.slo_ttft_ms is not None or args.tenants > 1 or
+                  args.quota_tokens is not None or
+                  args.deadline_s is not None or
+                  args.kill_replica is not None)
+    if fleet_mode:
+        return _main_fleet(args, cfg, params, access if paging else None,
+                           kv_shards, faults_on, fault_seed,
+                           retry_policy, device)
 
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
                       max_len=args.max_len,
@@ -370,6 +431,128 @@ def main(argv=None) -> dict:
                  "model_argmin": d.model_argmin} for d in trace]
         result["kv"] = kv
     eng.close()
+    if args.metrics:
+        result["metrics"] = obs.default_registry().snapshot()
+    if args.trace_out:
+        n_ev = obs.trace.export(args.trace_out)
+        print(f"[serve:trace] wrote {n_ev} events to {args.trace_out}",
+              flush=True)
+    return result
+
+
+def _main_fleet(args, cfg, params, access, kv_shards, faults_on,
+                fault_seed, retry_policy, device) -> dict:
+    """The serving-frontend path: workload -> admission -> fleet."""
+    slo_s = args.slo_ttft_ms / 1e3 if args.slo_ttft_ms is not None \
+        else None
+
+    def mk_admission():
+        return AdmissionController(slo_ttft_s=slo_s,
+                                   default_quota=args.quota_tokens)
+
+    kill_at = None
+    if args.kill_replica is not None:
+        kill_at = (args.kill_replica, f"replica{args.replicas - 1}")
+    router = FleetRouter.build(
+        cfg, params, replicas=args.replicas, batch_slots=args.slots,
+        max_len=args.max_len, access_path=access, kv_shards=kv_shards,
+        kv_replicas=args.kv_replicas, kv_kill_step=args.kv_kill_node,
+        kv_doorbell=args.kv_doorbell, overlap=not args.no_overlap,
+        kv_node_latency_s=args.kv_node_latency, kv_retry=retry_policy,
+        kv_integrity=faults_on, admission_factory=mk_admission,
+        kill_replica_at=kill_at, fused_install=args.fused_install,
+        kv_codec=args.kv_codec, prefix_share=args.prefix_share,
+        device=device)
+    plan = None
+    if faults_on:
+        plan = _faults.install(FaultPlan(
+            fault_seed, error_rate=args.fault_rate,
+            timeout_rate=args.fault_timeout_rate,
+            corrupt_rate=args.fault_corrupt))
+    arrivals = parse_arrivals(args.arrivals or "burst")
+    tenants = default_tenants(
+        args.tenants, args.max_len, quota_tokens=args.quota_tokens,
+        slo_ttft_s=slo_s,
+        system_prompt_len=16 if args.prefix_share else 0,
+        share_ratio=args.prefix_share_ratio if args.prefix_share
+        else 0.0)
+    workload = Workload(arrivals, tenants, args.max_len, seed=args.seed)
+    pairs = workload.requests(workload.schedule(args.requests),
+                              cfg.vocab)
+    t0 = time.time()
+    try:
+        undrained = router.run_open_loop(pairs,
+                                         deadline_s=args.deadline_s)
+    finally:
+        if faults_on:
+            _faults.uninstall()
+    dt = time.time() - t0
+    fleet = router.stats()
+    done = router.done_requests()
+    summ = summarize_requests(done)
+    served, toks = summ["served"], summ["tokens"]
+    lat = summ["e2e_s"]
+    lat_sum = _latency_summary(
+        {"ttft_s": router.merged_hist("ttft_hist"),
+         "tpot_s": router.merged_hist("tpot_hist"),
+         "queue_wait_s": router.merged_hist("queue_wait_hist")}, lat)
+    adm = {n: router.engines[n].admission.stats()
+           for n in router.engines
+           if router.engines[n].admission is not None}
+    print(f"[serve:fleet] {fleet['replicas']} replicas "
+          f"({len(fleet['live'])} live), {arrivals.describe()} x "
+          f"{len(tenants)} tenants: {len(served)} served "
+          f"({summ['rejected']['count']} rejected: "
+          f"{summ['rejected']['reasons']}), {toks} tokens, "
+          f"{fleet['rounds']} rounds, "
+          f"{fleet['virtual_seconds']:.2f} virtual s "
+          f"({fleet['goodput_tok_per_vs']:.1f} tok/vs, "
+          f"wall {dt:.2f}s), rerouted={fleet['rerouted']}", flush=True)
+    print(f"[serve:latency] ttft p50={lat_sum['ttft_s']['p50']*1e3:.1f}ms "
+          f"p99={lat_sum['ttft_s']['p99']*1e3:.1f}ms | "
+          f"queue_wait p50={lat_sum['queue_wait_s']['p50']*1e3:.1f}ms "
+          f"p99={lat_sum['queue_wait_s']['p99']*1e3:.1f}ms | "
+          f"e2e p50={lat_sum['e2e_s']['p50']*1e3:.1f}ms", flush=True)
+    engines = list(router.engines.values())
+    result = {"requests": len(served), "tokens": toks, "seconds": dt,
+              "tok_per_s": toks / dt if dt > 0 else 0.0,
+              "goodput_tok_per_vs": fleet["goodput_tok_per_vs"],
+              "rejected": summ["rejected"],
+              "shed": sum(e.shed_requests for e in engines),
+              "access_path": access, "undrained": undrained,
+              "latency": lat_sum,
+              "install": {
+                  "fused": sum(e.install_fused for e in engines),
+                  "fallback": sum(e.install_fallback for e in engines),
+                  "hops_saved": sum(e.install_hops_saved
+                                    for e in engines)},
+              "outputs": {r.rid: list(r.out_tokens) for r in served},
+              "fleet": fleet, "admission": adm,
+              "workload": {"arrivals": arrivals.describe(),
+                           "tenants": [t.name for t in tenants],
+                           "seed": args.seed,
+                           "n_requests": len(pairs)}}
+    if plan is not None:
+        result["faults"] = {"seed": fault_seed, "plan": plan.snapshot(),
+                            "retry": retry_policy.stats()}
+    if router.fabric is not None:
+        fs = router.fabric.stats()
+        result["fabric"] = {
+            "shards": kv_shards, "replicas": args.kv_replicas,
+            "epoch": fs["epoch"], "failed": fs["failed"],
+            "failovers": fs["failovers"],
+            "killed": router.killed_member,
+            "kill_round": router.kill_round,
+            "events": list(router.fabric_events),
+            "repair": router.kill_repair}
+        print(f"[serve:fabric] shards={kv_shards} "
+              f"replicas={args.kv_replicas} epoch={fs['epoch']} "
+              f"killed={router.killed_member} "
+              f"failovers={fs['failovers']}", flush=True)
+    pager0 = router.engines[fleet["live"][0]].pager
+    if pager0 is not None:
+        result["kv"] = _kv_stats_print(pager0, access)
+    router.close()
     if args.metrics:
         result["metrics"] = obs.default_registry().snapshot()
     if args.trace_out:

@@ -849,13 +849,19 @@ class TieredStore:
             "staged_hops": self.staged_hops,
             "staged_hops_saved": self.staged_hops_saved})
 
-    def close(self) -> None:
+    def drain_prefetches(self) -> None:
+        """Join every in-flight prefetch, errors included, and forget
+        them; the path stays open (a store over a path other stores
+        share)."""
         for io, _ in list(self._prefetch.values()):
             try:
                 io.wait()
             except Exception:
                 pass
         self._prefetch.clear()
+
+    def close(self) -> None:
+        self.drain_prefetches()
         self.backend.close()
         self.engine.close()
 

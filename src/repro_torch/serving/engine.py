@@ -32,7 +32,8 @@ the codec's typed segments; encoded fetch groups install through
 a request whose first ``Request.prefix_len`` prompt tokens are shared
 against one read-only base page per prefix.  Tokens are unchanged by
 sharing, and by ``bf16`` on a bf16 cache; ``kv_capacity_bytes`` sets the
-store's soft physical-byte budget, which ``kv_free_pages`` reports.
+store's physical-byte budget, which ``kv_free_pages`` reports: soft for
+the FIFO refill, hard under an admission controller.
 
 The sharded memory plane: ``kv_shards > 1`` builds a ``ShardedPath``
 of that many ``access_path`` members (two channels each) with
@@ -46,9 +47,22 @@ sharded and in the tier store otherwise, never both; a request whose
 paging op stays failed after retries and failover is shed
 (``Request.failed`` carries the reason) while the batch decodes on.
 
-Not ported yet (ROADMAP A.4): the admission controller (which reads
-``kv_free_pages`` and ``kv_page_cost``) and the fleet's shared plane
-(``shared_path``, ``page_base``, ``total_pages``).
+The serving frontend's hooks (``serving/admission.py``, ``fleet.py``):
+
+* ``admission=`` takes an ``AdmissionController``, which then decides
+  each step which queued requests admit (against free slots, free KV
+  pages with ``kv_capacity_bytes`` as a hard budget, tenant quotas and
+  the SLO prediction), which wait and which shed early
+  (``Request.failed`` starting ``slo`` or ``quota``); its virtual clock
+  advances by each step's host wall time;
+* a *shared* memory plane (``shared_path=``, ``page_base=``,
+  ``total_pages=``, ``prefix_base=``): fleet replicas ride one path or
+  fabric, each owning the pages ``[page_base, page_base + batch_slots)``
+  (``_pg`` maps a slot to its page) and, with ``prefix_share``, a base
+  pool at ``prefix_base``; the engine never closes a shared path;
+* ``outstanding_tokens`` (the fleet's routing load),
+  ``backlog_size`` and ``run_until_drained(deadline_s=)``, a wall-clock
+  budget beside the step budget.
 """
 from __future__ import annotations
 
@@ -84,9 +98,14 @@ class Request:
     max_new: int = 16
     out_tokens: Optional[List[int]] = None
     failed: Optional[str] = None       # rejection reason (engine kept going)
-    # the submitting tenant, which keys the per-tenant latency metrics;
-    # one engine serves "default" (the fleet frontend comes with A.4)
+    # serving-frontend identity: the submitting tenant (it keys the
+    # per-tenant latency metrics), its priority class (higher admits
+    # first) and its TTFT deadline in seconds from submit (None: the
+    # controller's own SLO, if any)
     tenant: str = "default"
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    t_arrival: float = 0.0             # open-loop arrival time (virtual)
     # shared-prefix length: the first prefix_len prompt tokens are a
     # cross-request prefix; a paging engine with prefix_share=True dedups
     # the slot's spilled page against the base keyed by those tokens
@@ -99,10 +118,19 @@ class Request:
     t_first_pc: float = 0.0
     t_done_pc: float = 0.0
 
+    def cost_tokens(self) -> int:
+        """The admission and routing work unit: prefill tokens plus the
+        decode budget."""
+        return int(len(self.prompt)) + int(self.max_new)
+
 
 def failure_kind(reason: str) -> str:
     """Classify a ``Request.failed`` reason into the short kinds the
     result dict's ``rejected.reasons`` section counts by."""
+    if reason.startswith("slo"):
+        return "slo"
+    if reason.startswith("quota"):
+        return "quota"
     if "prompt length" in reason:
         return "overlong"
     if "store failed" in reason:
@@ -131,6 +159,13 @@ def summarize_requests(done: List[Request]) -> dict:
                          "rids": sorted(r.rid for r in failed)}}
 
 
+def page_bytes_for(cfg, max_len: int) -> int:
+    """Bytes of one packed single-request KV page for ``cfg``: the page
+    geometry every engine over a shared plane must agree on."""
+    return sum(l.numel() * l.element_size() for l in
+               tree_flatten(T.init_cache(cfg, 1, max_len, "meta"))[0])
+
+
 def page_codec_for(cfg, max_len: int, codec: Optional[str]):
     """The engine's page codec: the ``PageLayout``'s leaves become the
     codec's typed segments, so float KV leaves compress and integer
@@ -155,12 +190,18 @@ class ServeEngine:
                  kv_node_latency_s: float = 0.0,
                  kv_retry: Optional[RetryPolicy] = None,
                  kv_integrity: bool = False,
+                 admission=None,
+                 shared_path=None, page_base: int = 0,
+                 total_pages: Optional[int] = None,
                  fused_install: bool = True,
                  kv_codec: str = "none", prefix_share: bool = False,
                  prefix_pages: int = 8,
-                 kv_capacity_bytes: Optional[int] = None, device=None):
+                 prefix_base: Optional[int] = None,
+                 kv_capacity_bytes: Optional[int] = None,
+                 name: str = "engine0", device=None):
         """``params`` must already live on ``device`` (default
-        ``"cuda"``, which raises without a card)."""
+        ``"cuda"``, which raises without a card); fleet replicas share
+        one set of them."""
         if kv_backend is not None:
             warnings.warn(
                 "ServeEngine(kv_backend=...) is deprecated; use "
@@ -186,6 +227,12 @@ class ServeEngine:
             raise ValueError(
                 "kv_kill_step without replication would lose pages: "
                 "use kv_replicas >= 2")
+        if shared_path is not None and (kv_shards > 1 or
+                                        kv_kill_step is not None):
+            raise ValueError(
+                "shared_path engines do not own fabric membership: "
+                "build the fabric (and kill schedule) at the fleet "
+                "layer instead")
         if access_path is None and (kv_shards > 1 or
                                     kv_kill_step is not None):
             # sharding implies paging, as on the CLI
@@ -195,6 +242,7 @@ class ServeEngine:
         self.params = params
         self.B = batch_slots
         self.max_len = max_len
+        self.name = name
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self.done: List[Request] = []
         self.prefill_1 = lm.make_prefill_step(cfg)
@@ -205,6 +253,9 @@ class ServeEngine:
         self.slot_pos = np.zeros(batch_slots, np.int64)
         self.cur_tokens = np.zeros((batch_slots, 1), np.int32)
         self.access_path = access_path
+        # over a shared plane the engine's pages are
+        # [page_base, page_base + batch_slots) of its address space
+        self.page_base = page_base
         self.overlap = overlap
         # grace: before decoding with installs pending, give their
         # fetches this long to settle
@@ -238,6 +289,11 @@ class ServeEngine:
         self.kill_step: Optional[int] = None
         self.kill_repair: Optional[dict] = None
         self._step_no = 0
+        # the frontend: an optional admission controller (queue order and
+        # shedding) and the routing load the fleet reads (tokens
+        # submitted, not yet finished or shed)
+        self.admission = admission
+        self._outstanding = 0
         self.ttft_hist = obs.LogHistogram()
         self.tpot_hist = obs.LogHistogram()
         self.queue_wait_hist = obs.LogHistogram()
@@ -245,7 +301,31 @@ class ServeEngine:
         # the decode step they landed in
         self.fabric_events: List[dict] = []
         self.pager: Optional[TieredStore] = None
-        if access_path is not None:
+        self._shared_plane = shared_path is not None
+        if shared_path is not None:
+            if total_pages is None:
+                total_pages = page_base + batch_slots
+            pool = ()
+            if prefix_share:
+                if prefix_base is None:
+                    raise ValueError(
+                        "prefix_share over a shared plane needs "
+                        "prefix_base= (the fleet sizes the base pool "
+                        "past every replica's page range)")
+                pool = range(prefix_base, prefix_base + prefix_pages)
+            # the path is the fleet's: its retry and checksum plane lives
+            # inside it (a ShardedPath) or above it at the tier, as when
+            # the engine builds its own
+            fabric_owned = getattr(shared_path, "_members", None) \
+                is not None
+            self.pager = TieredStore(
+                n_pages=total_pages, page_shape=(self._layout.page_bytes,),
+                dtype="uint8", n_hot_slots=batch_slots, path=shared_path,
+                retry=None if fabric_owned else kv_retry,
+                integrity=kv_integrity,
+                codec=page_codec_for(cfg, max_len, kv_codec),
+                shared_pool=pool, capacity_bytes=kv_capacity_bytes)
+        elif access_path is not None:
             page_bytes = self._layout.page_bytes
             codec = page_codec_for(cfg, max_len, kv_codec)
             # the cold tier is sized in physical (encoded) bytes
@@ -279,18 +359,34 @@ class ServeEngine:
                 shared_pool=range(batch_slots, n_tier_pages),
                 capacity_bytes=kv_capacity_bytes)
 
+    def _pg(self, slot: int) -> int:
+        """This engine's page for ``slot`` (the identity when the engine
+        owns its whole plane)."""
+        return self.page_base + slot
+
     def submit(self, req: Request) -> None:
         req.t_submit_pc = time.perf_counter()
         req.out_tokens = []
+        self._outstanding += req.cost_tokens()
         obs.async_begin("serve.request", req.rid,
                         prompt_len=len(req.prompt), max_new=req.max_new)
         self.queue.put(req)
+
+    def outstanding_tokens(self) -> int:
+        """Work accepted and not finished (prefill and decode tokens of
+        queued, backlogged, pending and active requests): the fleet
+        router's least-outstanding-work load."""
+        return self._outstanding
+
+    def backlog_size(self) -> int:
+        return 0 if self.admission is None else len(self.admission.backlog)
 
     def kv_free_pages(self) -> int:
         """Free KV page capacity: slots unoccupied whose page is neither
         resident nor mid-fetch, capped by the store's physical-byte
         budget when ``kv_capacity_bytes`` is set (compressed or deduped
-        pages leave more of it)."""
+        pages leave more of it).  The admission controller never admits
+        past it."""
         if self.pager is None:
             return sum(1 for s in range(self.B)
                        if self.slot_req[s] is None
@@ -299,7 +395,8 @@ class ServeEngine:
         for s in range(self.B):
             if self.slot_req[s] is not None or s in self._pending_install:
                 continue
-            if s in self.pager.slot_of_page or s in self.pager._prefetch:
+            p = self._pg(s)
+            if p in self.pager.slot_of_page or p in self.pager._prefetch:
                 continue
             free += 1
         byte_free = self.pager.free_cold_bytes()
@@ -349,11 +446,11 @@ class ServeEngine:
                  for l in leaves])
         if self.prefix_share and req.prefix_len > 0:
             key = req.prompt[:req.prefix_len].tobytes()
-            ratio = self.pager.store_dedup(slot, packed, key)
+            ratio = self.pager.store_dedup(self._pg(slot), packed, key)
             self._share_ratio += 0.5 * (ratio - self._share_ratio)
         else:
-            self.pager.write_page(slot, packed)
-        self._admit_spills.append(slot)
+            self.pager.write_page(self._pg(slot), packed)
+        self._admit_spills.append(self._pg(slot))
 
     def _flush_spill_prefetch(self) -> None:
         """Start every page prefetch this admission round queued, in one
@@ -365,7 +462,7 @@ class ServeEngine:
     def _page_fetch(self, slot: int, leaves, spec):
         """Join the slot's prefetch and cut the device page back into
         cache leaves (plain PyTorch, leaf by leaf)."""
-        dev_page = self.pager.ensure([slot])[slot]
+        dev_page = self.pager.ensure([self._pg(slot)])[self._pg(slot)]
         out, off = [], 0
         for l in leaves:
             n = l.numel() * l.element_size()
@@ -379,6 +476,7 @@ class ServeEngine:
         req.failed = (f"prompt length {P} >= engine max_len "
                       f"{self.max_len}")
         req.t_done_pc = time.perf_counter()
+        self._outstanding -= req.cost_tokens()
         self.done.append(req)
         obs.async_end("serve.request", req.rid, rejected=True)
 
@@ -413,14 +511,35 @@ class ServeEngine:
                 self._install(s, req, tok, caches1)
 
     def _admit(self) -> None:
-        """Fill free slots from the queue, FIFO (continuous batching);
-        over-long prompts are rejected inline."""
+        """Fill free slots from the queue (continuous batching).
+
+        Without a controller: FIFO until full, over-long prompts
+        rejected inline.  With an ``AdmissionController`` the queue
+        first drains into its priority backlog (over-long prompts are
+        rejected at the door), then the controller decides, against free
+        slots, free KV pages, quotas and its SLO prediction, which
+        requests start now, which wait and which shed."""
         free = [s for s in range(self.B)
                 if self.slot_req[s] is None
                 and s not in self._pending_install]
-        for s in free:
-            req = None
-            while req is None:
+        if self.admission is None:
+            for s in free:
+                req = None
+                while req is None:
+                    try:
+                        cand = self.queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    P = len(cand.prompt)
+                    if P >= self.max_len:
+                        self._reject_overlong(cand, P)
+                        continue
+                    req = cand
+                if req is None:
+                    break
+                self._start_request(s, req)
+        else:
+            while True:
                 try:
                     cand = self.queue.get_nowait()
                 except queue.Empty:
@@ -429,10 +548,17 @@ class ServeEngine:
                 if P >= self.max_len:
                     self._reject_overlong(cand, P)
                     continue
-                req = cand
-            if req is None:
-                break
-            self._start_request(s, req)
+                self.admission.enqueue(cand)
+            admits, sheds = self.admission.select(
+                free_slots=len(free), kv_free=self.kv_free_pages(),
+                batch_slots=self.B,
+                kv_cost=self.kv_page_cost
+                if (self.pager is not None and self.prefix_share)
+                else None)
+            for req, reason in sheds:
+                self._shed(req, reason)
+            for s, req in zip(free, admits):
+                self._start_request(s, req)
         if self.pager is not None:
             self._flush_spill_prefetch()
 
@@ -464,21 +590,23 @@ class ServeEngine:
 
     def _shed(self, req: Request, reason: str,
               slot: Optional[int] = None) -> None:
-        """A paging op that stayed failed after retries sheds THIS
-        request; the batch keeps decoding everyone else."""
+        """A paging op that stayed failed after retries, or an admission
+        decision (``slo``, ``quota``), sheds THIS request; the batch
+        keeps decoding everyone else."""
         req.failed = reason
         req.t_done_pc = time.perf_counter()
+        self._outstanding -= req.cost_tokens()
         self.done.append(req)
         self.shed_requests += 1
         if slot is not None and self.pager is not None:
             self._pending_install.pop(slot, None)
-            self.pager.drop_prefetch(slot)
+            self.pager.drop_prefetch(self._pg(slot))
             try:
-                self.pager.release(slot, writeback=False)
+                self.pager.release(self._pg(slot), writeback=False)
             except Exception:
                 pass        # the page is being abandoned either way
             try:
-                self.pager.discard_cold(slot)
+                self.pager.discard_cold(self._pg(slot))
             except Exception:
                 pass
         if obs.trace.enabled():
@@ -502,13 +630,15 @@ class ServeEngine:
             ready = pending
             self.blocking_installs += len(ready)
         else:
-            ready = [s for s in pending if self.pager.fetch_ready(s)]
+            ready = [s for s in pending
+                     if self.pager.fetch_ready(self._pg(s))]
             if not ready:
                 # nothing landed: with other slots decodable, grant a
                 # short grace; with nothing decodable, block until the
                 # FIRST page lands
                 cs = [c for s in pending
-                      if (c := self.pager.fetch_completion(s)) is not None
+                      if (c := self.pager.fetch_completion(
+                          self._pg(s))) is not None
                       and getattr(c, "reactive", True)]
                 if cs:
                     try:
@@ -517,7 +647,8 @@ class ServeEngine:
                             if have_active else 60.0)
                     except cplane.CompletionTimeout:
                         pass
-                ready = [s for s in pending if self.pager.fetch_ready(s)]
+                ready = [s for s in pending
+                         if self.pager.fetch_ready(self._pg(s))]
             if ready:
                 self.overlap_installs += len(ready)
             elif not have_active:
@@ -555,7 +686,7 @@ class ServeEngine:
         paging failure degrades to the per-slot path so only the slots
         whose fetch failed shed."""
         try:
-            packed = self.pager.ensure_packed(ready)
+            packed = self.pager.ensure_packed([self._pg(s) for s in ready])
         except RETRIABLE:
             for s in ready:
                 self._install_one(s)
@@ -564,7 +695,7 @@ class ServeEngine:
         # split by staged representation: encoded rows install through
         # the codec's decode, raw ones (codec off, or delta pages rebuilt
         # on the host) as they are
-        enc = [s for s in ready if self.pager.staged_encoded(s)]
+        enc = [s for s in ready if self.pager.staged_encoded(self._pg(s))]
         raw = [s for s in ready if s not in enc]
         with obs.span("serve.install", path="fused", slots=len(ready),
                       rids=[m[0].rid for m in meta]):
@@ -572,8 +703,8 @@ class ServeEngine:
             for group, codec in ((raw, None), (enc, self.pager.codec)):
                 if group:
                     pi.install_pages(self._layout, leaves,
-                                     [packed[s] for s in group], group,
-                                     codec=codec)
+                                     [packed[self._pg(s)] for s in group],
+                                     group, codec=codec)
         self.install_fused += len(ready)
         if obs.metrics.live():
             obs.default_registry().counter(
@@ -583,6 +714,7 @@ class ServeEngine:
 
     def _finish(self, req: Request) -> None:
         req.t_done_pc = time.perf_counter()
+        self._outstanding -= req.cost_tokens()
         self.done.append(req)
         n = len(req.out_tokens)
         if req.t_first_pc > 0.0 and n > 1:
@@ -593,6 +725,8 @@ class ServeEngine:
                 reg.histogram("serve.tpot_s").record(tpot)
                 reg.histogram(
                     f"serve.tenant.{req.tenant}.tpot_s").record(tpot)
+        if self.admission is not None:
+            self.admission.observe_finish(req)
         obs.async_end("serve.request", req.rid, tokens=n)
 
     def _maybe_kill_node(self) -> None:
@@ -623,6 +757,7 @@ class ServeEngine:
     def step(self) -> int:
         """One batched decode step; returns #active slots."""
         self._step_no += 1
+        t_step0 = time.perf_counter()
         self._maybe_kill_node()
         self._admit()
         if self.pager is not None:
@@ -640,6 +775,12 @@ class ServeEngine:
             self.caches, logits = self.decode(self.params, batch,
                                               self.caches)
             nxt = lm.greedy_sample(logits).cpu().numpy()
+        if self.admission is not None:
+            # the virtual clock: the whole step's host wall time (admit,
+            # install, decode, and the readback above, which waits for
+            # the card) is what a queued request waits through
+            self.admission.observe_step(time.perf_counter() - t_step0,
+                                        active=len(active))
         for s in active:
             tok = int(nxt[s])
             req = self.slot_req[s]
@@ -650,37 +791,56 @@ class ServeEngine:
                 self._finish(req)
                 self.slot_req[s] = None
                 if self.pager is not None:
-                    self.pager.release(s)
-                    self.pager.discard_cold(s)
+                    # the retiring request's cold bytes return to the
+                    # budget admission refills against
+                    self.pager.release(self._pg(s))
+                    self.pager.discard_cold(self._pg(s))
             else:
                 self.cur_tokens[s, 0] = tok
         return len(active)
 
     def idle(self) -> bool:
-        """True when nothing is queued, pending or active."""
+        """True when nothing is queued, backlogged, pending or active."""
         return (self.queue.empty() and not self._pending_install
+                and self.backlog_size() == 0
                 and all(r is None for r in self.slot_req))
 
     def undrained_count(self) -> int:
         return (self.queue.qsize()
+                + self.backlog_size()
                 + sum(r is not None for r in self.slot_req)
                 + len(self._pending_install))
 
-    def run_until_drained(self, max_steps: int = 10000) -> int:
-        """Step until every request finishes or ``max_steps`` runs out;
-        returns the number of undrained requests (and warns if any)."""
+    def run_until_drained(self, max_steps: int = 10000,
+                          deadline_s: Optional[float] = None) -> int:
+        """Step until every request finishes or a budget runs out:
+        ``max_steps`` decode steps, ``deadline_s`` wall seconds, or both.
+        Returns the number of undrained requests, and warns naming both
+        budgets when it is not 0."""
+        t0 = time.monotonic()
         steps = 0
-        while steps < max_steps:
+        while steps < max_steps and \
+                (deadline_s is None or time.monotonic() - t0 < deadline_s):
             steps += 1
             if self.step() == 0 and self.idle():
                 return 0
         left = self.undrained_count()
         if left:
+            elapsed = time.monotonic() - t0
             warnings.warn(
                 f"run_until_drained: {left} requests still undrained "
-                f"after max_steps={max_steps}", RuntimeWarning, stacklevel=2)
+                f"after max_steps={max_steps} (used {steps}) and "
+                f"deadline_s={deadline_s} (elapsed {elapsed:.3f}s)",
+                RuntimeWarning, stacklevel=2)
         return left
 
     def close(self) -> None:
-        if self.pager is not None:
+        """Close the store; over a shared plane only this engine's
+        prefetches are joined, and the path stays open for the other
+        replicas (the fleet closes it)."""
+        if self.pager is None:
+            return
+        if self._shared_plane:
+            self.pager.drain_prefetches()
+        else:
             self.pager.close()

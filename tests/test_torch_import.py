@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks",
              "examples")
 BENCH_MODULES = ("completion_modes", "contention", "host_device_bw",
                  "rdma_analogue", "far_memory", "overlap", "install_path",
-                 "fabric", "chaos", "run")
+                 "fabric", "chaos", "serve_slo", "kv_capacity", "run")
 EXAMPLES = ("kernels", "serve_requests")
 
 
@@ -42,7 +42,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.access.adapters", "repro_torch.fabric",
             "repro_torch.fabric.placement", "repro_torch.fabric.manager",
             "repro_torch.fabric.sharded_path", "repro_torch.runtime",
-            "repro_torch.runtime.fault", "repro_torch.obs.validate"} | {
+            "repro_torch.runtime.fault", "repro_torch.obs.validate",
+            "repro_torch.serving.admission", "repro_torch.serving.workload",
+            "repro_torch.serving.fleet"} | {
         f"repro_torch.benchmarks.{m}" for m in BENCH_MODULES} | {
         f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = ("import sys, importlib\n"
