@@ -14,10 +14,14 @@ and it stops at the first failing phase with a non-zero exit:
    prints the build times, ``ptxas``' report and one line of registers
    and spills per head width of the bf16 flash kernel;
 2. page kernel phase: at the qwen2-0.5b cache layout (max_len 128 and
-   2048) and the recurrentgemma-2b layout (max_len 2304), B=4 slots, G=4
-   pages, random caches, holds ``pack_page`` and ``install_pages`` byte
-   for byte against their plain PyTorch versions (an install whose slots
-   repeat a slot included: the last page wins), prints both kernels'
+   2048), the recurrentgemma-2b layout (max_len 2304), the rwkv6-1.6b
+   layout (max_len 384: float32 state beside bf16 token shifts) and
+   qwen2-0.5b's with the int8 KV cache (max_len 128: int8 K/V beside
+   float32 scales and int32 lengths), none of whose leaves may go to
+   the install's fallback, B=4 slots, G=4 pages, random caches, holds
+   ``pack_page`` and ``install_pages`` byte for byte against their
+   plain PyTorch versions (an install whose slots repeat a slot
+   included: the last page wins), prints both kernels'
    launches per call (the install must take one), times kernel, plain
    version and one library call with CUDA events (device time, median of
    9 repeats of 20 calls) and prints the install's host microseconds per
@@ -31,13 +35,17 @@ and it stops at the first failing phase with a non-zero exit:
    (``W % 4 != 0``), the last two without ``h0``;
 4. ``flash_attention`` phase: timed at the hybrid prefill (S=2100, 10
    heads, 1 KV head, d_head 256, window 2048, bf16) and at qwen2-0.5b's
-   (S=2048, 14/2 heads, d_head 64, causal, bf16) and at the qwen2-0.5b
-   serve prefill (S=12), with TFLOP/s and the share of the bound; held
-   against the plain version within 2e-2 (bf16) and checked within 2e-5
-   (float32) at small shapes: logit cap, bidirectional, ragged S=12,
-   d_head 256; the bf16 kernel also at the hybrid prefill, (1, 2100,
-   8/2, 128), B=2 at d_head 256 with a window, d_head 32 and a (B, H, S,
-   dh)-strided view, against the plain version in float32; every check
+   (S=2048, 14/2 heads, d_head 64, causal, bf16) and at the serve
+   prefills (S=12) of qwen2-0.5b, qwen2-moe-a2.7b (16/16, d_head 128),
+   qwen2-vl-7b (28/4, 128) and musicgen-large (32/32, 64), with TFLOP/s
+   and the share of the bound; held against the plain version within
+   2e-2 (bf16) and checked within 2e-5 (float32) at small shapes: logit
+   cap, bidirectional, ragged S=12, d_head 256; the bf16 kernel also at
+   the hybrid prefill, (1, 2100, 8/2, 128), B=2 at d_head 256 with a
+   window, d_head 32 and a (B, H, S, dh)-strided view, and the other
+   families' heads at S=12 and 300 (GQA groups 1, 7 and 6 at d_head
+   128, grok's 48/8 with its logit cap of 30; MHA 32/32 at d_head 64),
+   against the plain version in float32; every check
    also holds each 64-row block's relative RMS error within 1e-2;
    ``scaled_dot_product_attention`` with an explicit boolean mask is
    timed beside it as a yardstick the port never calls;
@@ -100,7 +108,9 @@ and it stops at the first failing phase with a non-zero exit:
    ``--metrics``, its trace passing ``repro_torch.obs.validate`` with the
    serve, tier, fabric and path layers and the ``fabric.fail`` and
    ``serve.kill`` instants;
-10. fleet phases (the serving frontend), each serve counted and its
+10. fleet phases (the serving frontend; qwen2-0.5b and
+   recurrentgemma-2b cut to 6 layers at full width, ``CUT_LAYERS``),
+   each serve counted and its
    ``[fleet]`` line printing TTFT, TPOT and queue-wait p50/p99, goodput
    in tokens per fleet virtual second and the rounds: full-width
    qwen2-0.5b (max_len 128) on ``--replicas 2 --tenants 2 --slots 2
@@ -117,7 +127,22 @@ and it stops at the first failing phase with a non-zero exit:
    full-width recurrentgemma-2b (max_len 512, 6 requests, 2 replicas,
    ``--kill-replica 3``) with one engine's tokens.  Pack, install and
    flash must launch, and rg_lru for the hybrid;
-11. bench phase: ``repro_torch.benchmarks.run --quick`` on the card (the
+11. family phases (the other model families, ROADMAP A.5), each through
+   ``serve_phase`` (unpaged, paged, ``--no-overlap``; equal tokens, 8
+   fused installs, none on the fallback) at full width, bf16, seed 0, 8
+   requests on 4 slots, 16 new tokens: qwen2-moe-a2.7b, qwen2-vl-7b and
+   musicgen-large with 12-token prompts at max_len 128 (pack, install
+   and flash must launch), rwkv6-1.6b with 256-token prompts (two
+   128-token chunks) at max_len 384 (pack and install); qwen2-0.5b with
+   the int8 KV cache (``kv_dtype="int8"``) through ``ServeEngine`` with
+   the replaced config; each page's bytes held to the layout's
+   (``FAMILY_SERVES``); grok-1-314b at smoke size only (628 GB of bf16
+   weights fit no card), labelled reduced.  The three runs of a serve
+   share one draw of its weights, freed before the next arch draws its
+   own.  ``[family]`` lines print TTFT
+   and TPOT p50/p99 of the three runs and the paged run's launches;
+12. bench phase (the same cut of depth; a ``[time]`` line after each
+   module): ``repro_torch.benchmarks.run --quick`` on the card (the
    paper's channel, contention, completion, RDMA-analogue, far-memory,
    overlap, fabric, chaos, serving-SLO, install and KV-capacity
    benchmarks; far-memory's
@@ -136,21 +161,26 @@ and it stops at the first failing phase with a non-zero exit:
    ``bitexact_bf16`` and ``bitexact_share``.  Speed and policy ratios
    (``ok_replicas``, ``ok_slo``, ``share_admit_uplift``) are printed,
    not held;
-12. reference check: at the smoke size in float32, qwen2-0.5b's and
-   recurrentgemma-2b's prefill logits on the card agree with the CPU's
-   within 1e-4 (the hybrid prompt of 40 tokens overruns its window of
-   32);
+13. reference check: at the smoke size in float32, the logits of the
+   prefill and of two greedy decode steps after it, of every served
+   arch, on the card agree with the CPU's within 1e-4 (the hybrid
+   prompt of 40 tokens overruns its window of 32; RWKV's of 256 tokens
+   runs two chunks, its decode the T == 1 branch; qwen2-0.5b also with
+   the int8 KV cache, whose decode quantises, stores and dequantises).
+   A ``[time]`` line after each group of phases gives the seconds since
+   the start;
 
 Every kernel launch count is zeroed just before each counted run (the
 paged serves over every access path, the capacity serves, the fabric,
-chaos, trace and fleet serves, the Fig-8 sweep, the bench phase's
-benchmarks and examples) and read just after;
+chaos, trace, fleet and family serves, the Fig-8 sweep, the bench
+phase's benchmarks and examples) and read just after;
 the ``kernels`` line sums them, and gives the fleet serves' share as
 ``fleet_launches``.  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -208,26 +238,31 @@ def _rand_leaves(layout, gen, batch_shapes: bool):
             out.append(torch.randn(shape, generator=gen, device=gen.device)
                        .to(dt))
         else:
-            out.append(torch.randint(0, 1000, shape, generator=gen,
+            # every byte value of an int8 leaf, lengths up to 1000
+            lo, hi = ((torch.iinfo(dt).min, torch.iinfo(dt).max + 1)
+                      if dt.itemsize == 1 else (0, 1000))
+            out.append(torch.randint(lo, hi, shape, generator=gen,
                                      device=gen.device, dtype=dt))
     return out
 
 
 def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
-                 G: int = 4) -> dict:
+                 G: int = 4, **changes) -> dict:
     """Check both page kernels against their plain versions at ``arch``'s
     cache layout and time them; returns the numbers for the kernels
-    line."""
+    line.  ``changes`` replace config fields (``kv_dtype="int8"``)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import torch_dtype
     from repro_torch.kernels import page_install as pi
     from repro_torch.models import transformer as T
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **changes)
     dev = torch.device("cuda")
     layout = pi.page_layout(T.init_cache(cfg, 1, max_len, "meta"),
                             T.init_cache(cfg, B, max_len, "meta"), B)
+    assert not layout.fallback_indices(), layout.fallback_indices()
     gen = torch.Generator(device=dev)
     gen.manual_seed(max_len)
 
@@ -316,7 +351,8 @@ def kernel_phase(max_len: int, arch: str = "qwen2-0.5b", B: int = 4,
              install_launches_per_call=install_launches,
              pack_bound_ms=2 * pb / HBM_BYTES_PER_S * 1e3,
              install_bound_ms=2 * pb * G / HBM_BYTES_PER_S * 1e3)
-    print(f"[kernels] {arch} max_len={max_len} B={B} G={G} page={pb}B "
+    print(f"[kernels] {arch}{changes or ''} max_len={max_len} B={B} G={G} "
+          f"page={pb}B leaves={sorted({sp.dtype for sp in layout.leaves})} "
           f"pack: launches_per_call={pack_launches} "
           f"kernel_ms={t['pack_ms']:.5f} "
           f"plain_ms={t['pack_plain_ms']:.5f} "
@@ -534,6 +570,18 @@ def flash_checks() -> None:
     flash_check(2, 700, 4, 1, 256, bf16, 2e-2, plain_f32=True, window=256)
     flash_check(1, 200, 4, 2, 32, bf16, 2e-2, plain_f32=True)
     flash_check(2, 300, 8, 2, 128, bf16, 2e-2, plain_f32=True, layout="bhsd")
+    # the other families' prefill heads: GQA groups 1, 7 and 6 at d_head
+    # 128 (qwen2-moe 16/16, qwen2-vl 28/4, grok 48/8 with its logit cap),
+    # MHA at d_head 64 (musicgen 32/32); the serve's 12 rows and 300
+    flash_check(1, 12, 16, 16, 128, bf16, 2e-2, plain_f32=True)
+    flash_check(1, 12, 28, 4, 128, bf16, 2e-2, plain_f32=True)
+    flash_check(1, 12, 32, 32, 64, bf16, 2e-2, plain_f32=True)
+    flash_check(1, 12, 48, 8, 128, bf16, 2e-2, plain_f32=True,
+                logit_cap=30.0)
+    flash_check(1, 300, 28, 4, 128, bf16, 2e-2, plain_f32=True)
+    flash_check(1, 300, 32, 32, 64, bf16, 2e-2, plain_f32=True)
+    flash_check(1, 300, 48, 8, 128, bf16, 2e-2, plain_f32=True,
+                logit_cap=30.0)
 
 
 def _copy_input(R: int, C: int, dtype, seed: int):
@@ -699,20 +747,53 @@ def counted(run):
     return res, launches
 
 
-def serve_phase(arch: str, flags, vocab: int, needs) -> dict:
+def free_card() -> None:
+    """Return what the last run left to the allocator: an arch's weights
+    take up to 28 GB (qwen2-moe-a2.7b)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_phase(arch: str, flags, vocab: int, needs,
+                label: str = "") -> dict:
     """Serve ``arch`` without paging, with paging (counted) and paged
     with ``--no-overlap``; the three must give the same outputs, and the
-    kernels of ``needs`` must have launched in the paged run."""
+    kernels of ``needs`` must have launched in the paged run.  The three
+    runs share one draw of the weights (the CLI's ``tree_init`` is
+    wrapped for the phase), freed when the phase ends."""
     from repro_torch.launch import serve
 
+    init = serve.T.tree_init
+    drawn = []
+
+    def tree_init_once(defs, cfg, seed, device):
+        if not drawn:
+            drawn.append(init(defs, cfg, seed, device))
+        return drawn[0]
+
+    serve.T.tree_init = tree_init_once
+    try:
+        return _serve_three(serve, arch, flags, vocab, needs, label)
+    finally:
+        serve.T.tree_init = init
+        drawn.clear()
+        free_card()
+
+
+def _serve_three(serve, arch, flags, vocab, needs, label) -> dict:
     common = ["--arch", arch, "--requests", "8", "--slots", "4",
               "--max-new", "16", "--device", "cuda"] + list(flags)
     paged = common + ["--kv-paging", "--access-path", "xdma"]
     # the run without paging goes first: it also takes the process's
     # first-use costs (cuBLAS handles, allocator growth) off the paged run
     plain = serve.main(common)
+    free_card()
     res, launches = counted(lambda: serve.main(paged))
+    free_card()
     lat = res["latency"]
+    arch = arch + label
     print(f"[serve] {arch} launches={launches} install={res['install']} "
           f"tok_per_s={res['tok_per_s']:.2f} "
           f"ttft_p50_ms={lat['ttft_s']['p50'] * 1e3:.2f} "
@@ -735,7 +816,8 @@ def serve_phase(arch: str, flags, vocab: int, needs) -> dict:
     print(f"[serve] {arch} --no-overlap tok_per_s={serial['tok_per_s']:.2f}"
           f" ttft_p50_ms={serial['latency']['ttft_s']['p50'] * 1e3:.2f}",
           flush=True)
-    return {"result": res, "launches": launches}
+    return {"result": res, "launches": launches, "plain": plain,
+            "serial": serial}
 
 
 def access_serve_phase(arch: str, flags, base: dict, paths) -> dict:
@@ -1113,6 +1195,41 @@ def trace_phase(base: dict) -> dict:
 # launches summed over the counted fleet serves (each from 0)
 FLEET_LAUNCHES = {}
 
+# the depth of the earlier slices' models in the fleet and bench phases
+# (width unchanged), to keep the whole run within its time
+CUT_LAYERS = {"qwen2-0.5b": 6, "recurrentgemma-2b": 6}
+CUT_READERS = ("repro_torch.configs", "repro_torch.launch.serve",
+               "repro_torch.benchmarks.overlap",
+               "repro_torch.benchmarks.kv_capacity",
+               "repro_torch.examples.serve_requests")
+
+
+@contextlib.contextmanager
+def cut_depth():
+    """Inside, ``get_config`` gives the archs of ``CUT_LAYERS`` that many
+    layers, in every module of ``CUT_READERS`` (the ones the fleet and
+    bench phases build their models through)."""
+    import dataclasses
+    import importlib
+    from repro_torch import configs
+
+    full = configs.get_config
+
+    def get_config(arch):
+        cfg = full(arch)
+        n = CUT_LAYERS.get(arch)
+        return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+    mods = [importlib.import_module(m) for m in CUT_READERS]
+    saved = [m.get_config for m in mods]
+    for m in mods:
+        m.get_config = get_config
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.get_config = f
+
 
 def _fleet_line(res: dict) -> str:
     lat, fl = res["latency"], res["fleet"]
@@ -1249,7 +1366,8 @@ def fleet_slo_phase(n: int = 12) -> dict:
 
 
 def fleet_phases() -> None:
-    """The serving frontend on the card, each fleet serve counted:
+    """The serving frontend on the card, each fleet serve counted (run
+    inside ``cut_depth``):
     full-width qwen2-0.5b (max_len 128, 2 slots a replica, 2 replicas, 2
     tenants, a burst of 8) against one paged engine with 2 slots; the
     same with ``--kill-replica 2``; the kill scenario of ``serve_slo``
@@ -1257,7 +1375,7 @@ def fleet_phases() -> None:
     ``--kv-kill-node 4 --kill-replica 8``; SLO shedding under a
     saturating burst; full-width recurrentgemma-2b (max_len 512, 6
     requests, ``--kill-replica 3``) against one engine."""
-    page_kernels = ("pack_page", "install_pages")
+    page_kernels = PAGE_KERNELS
     qargs = ["--max-len", "128", "--slots", "2", "--replicas", "2",
              "--tenants", "2", "--requests", "8", "--device", "cuda",
              "--kv-paging"]
@@ -1304,6 +1422,113 @@ def fleet_phases() -> None:
           flush=True)
 
 
+# the other model families at full width, bf16, seed 0: arch, CLI flags,
+# vocab, the kernels the paged serve must launch, and the bytes of one
+# request's page (the layout's; an RWKV page is its state, whatever the
+# prompt length)
+PAGE_KERNELS = ("pack_page", "install_pages")
+FAMILY_SERVES = (
+    ("qwen2-moe-a2.7b", [], 151936, PAGE_KERNELS + ("flash_attention",),
+     25165920),
+    ("qwen2-vl-7b", [], 152064, PAGE_KERNELS + ("flash_attention",),
+     7340144),
+    ("musicgen-large", [], 2048, PAGE_KERNELS + ("flash_attention",),
+     50331840),
+    # two 128-token chunks a prompt, so the state carry runs
+    ("rwkv6-1.6b", ["--prompt-len", "256", "--max-len", "384"], 65536,
+     PAGE_KERNELS, 12779520),
+)
+INT8_KV_PAGE_BYTES = 835680      # qwen2-0.5b, kv_dtype="int8", max_len 128
+
+
+def _family_line(arch: str, ph: dict, page_bytes: int) -> None:
+    res = ph["result"]
+    print(f"[family] {arch} page_bytes={page_bytes} launches="
+          f"{ph['launches']} | paged {_lat_line(res)} tok_per_s="
+          f"{res['tok_per_s']:.2f} | unpaged {_lat_line(ph['plain'])} | "
+          f"no-overlap {_lat_line(ph['serial'])}", flush=True)
+
+
+def kv_int8_phase(n: int = 8, max_len: int = 128) -> dict:
+    """qwen2-0.5b with ``kv_dtype="int8"`` (int8 K/V beside float32
+    scales in the cache) through ``ServeEngine`` with the replaced config,
+    as the reference reaches it (no CLI flag): the CLI's seeded 12-token
+    prompts, 8 requests on 4 slots, 16 new tokens, unpaged, paged over
+    xdma (counted) and paged without overlap; equal tokens, every install
+    fused with none on the fallback, pack, install and flash launched."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), kv_dtype="int8")
+    params = T.tree_init(T.param_defs(cfg), cfg, 0, "cuda")
+    prompts, _ = serve.draw_prompts(0, n, 12, cfg.vocab)
+
+    def run(**kw):
+        eng = ServeEngine(cfg, params, batch_slots=4, max_len=max_len,
+                          device="cuda", **kw)
+        t0 = time.perf_counter()
+        for r, p in enumerate(prompts):
+            eng.submit(Request(rid=r, prompt=p, max_new=16))
+        undrained = eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        eng.close()
+        assert undrained == 0 and all(r.failed is None for r in eng.done)
+        return {"outputs": {r.rid: list(r.out_tokens) for r in eng.done},
+                "install": {"fused": eng.install_fused,
+                            "fallback": eng.install_fallback},
+                "page_bytes": eng._layout.page_bytes,
+                "fallback_leaves": eng._layout.fallback_indices(),
+                "tok_per_s": n * 16 / dt,
+                "latency": {"ttft_s": eng.ttft_hist.summary(),
+                            "tpot_s": eng.tpot_hist.summary()}}
+
+    plain = run()
+    res, launches = counted(lambda: run(access_path="xdma"))
+    serial = run(access_path="xdma", overlap=False)
+    ph = {"result": res, "launches": launches, "plain": plain,
+          "serial": serial}
+    _family_line("qwen2-0.5b+int8kv", ph, res["page_bytes"])
+    assert res["page_bytes"] == INT8_KV_PAGE_BYTES, res["page_bytes"]
+    assert not res["fallback_leaves"], res["fallback_leaves"]
+    assert res["install"] == {"fused": n, "fallback": 0}, res["install"]
+    assert all(launches[k] > 0 for k in PAGE_KERNELS + ("flash_attention",)
+               ), launches
+    assert sorted(res["outputs"]) == list(range(n)) and all(
+        len(v) == 16 for v in res["outputs"].values())
+    assert plain["outputs"] == res["outputs"] == serial["outputs"], \
+        "int8 KV: outputs differ across unpaged, paged and no-overlap"
+    del params
+    free_card()
+    return ph
+
+
+def family_phases() -> dict:
+    """The other model families (ROADMAP A.5) served at full width: each
+    of ``FAMILY_SERVES`` through ``serve_phase`` (unpaged, paged,
+    ``--no-overlap``: equal tokens, 8 fused installs, no fallback, the
+    named kernels launched) with its page bytes held to the layout's; the
+    int8 KV cache (``kv_int8_phase``); and grok-1-314b at smoke size only
+    (628 GB of bf16 weights fit no card), labelled as reduced."""
+    out = {}
+    for arch, flags, vocab, needs, page_bytes in FAMILY_SERVES:
+        ph = serve_phase(arch, flags, vocab, needs)
+        _family_line(arch, ph, page_bytes)
+        got = ph["result"]["kv"]["page_bytes"]
+        assert got == page_bytes, (arch, got, page_bytes)
+        out[arch] = ph
+    out["qwen2-0.5b+int8kv"] = kv_int8_phase()
+    label = " (reduced: smoke size)"
+    ph = serve_phase("grok-1-314b", ["--smoke"], 256,
+                     PAGE_KERNELS + ("flash_attention",), label=label)
+    _family_line("grok-1-314b" + label, ph,
+                 ph["result"]["kv"]["page_bytes"])
+    out["grok-1-314b"] = ph
+    return out
+
+
 def bench_phase() -> dict:
     """This slice's path: ``repro_torch.benchmarks.run --quick`` on the
     card (every module; far-memory's path-selection sweep and serves and
@@ -1322,7 +1547,20 @@ def bench_phase() -> dict:
 
     out = os.path.join(ROOT, "chiprun_out", "bench")
     os.makedirs(out, exist_ok=True)
-    res, launches = counted(lambda: bench_run.main(
+    runs = {mod: mod.run for _, mod in bench_run.MODULES}
+
+    def timed(name, run):
+        def go(**kw):
+            try:
+                return run(**kw)
+            finally:
+                lap(f"bench {name}")
+        return go
+
+    for name, mod in bench_run.MODULES:
+        mod.run = timed(name, mod.run)
+    try:
+        res, launches = counted(lambda: bench_run.main(
         ["--quick", "--device", "cuda",
          "--json", os.path.join(out, "BENCH_miss_pipeline.json"),
          "--select-json", os.path.join(out, "BENCH_path_select.json"),
@@ -1332,6 +1570,9 @@ def bench_phase() -> dict:
          "--serve-slo-json", os.path.join(out, "BENCH_serve_slo.json"),
          "--kv-capacity-json", os.path.join(out,
                                             "BENCH_kv_capacity.json")]))
+    finally:
+        for mod, run in runs.items():
+            mod.run = run
     print(f"[bench] benchmarks.run --quick launches={launches}", flush=True)
     assert all(launches[n] > 0 for n in ("pack_page", "install_pages",
                                          "flash_attention", "stream_copy")), \
@@ -1413,8 +1654,14 @@ def bench_phase() -> dict:
     return res
 
 
-def reference_check(arch: str, prompt_len: int, max_len: int) -> float:
-    """Smoke-size float32 prefill on the card vs on the CPU."""
+def reference_check(arch: str, prompt_len: int, max_len: int,
+                    steps: int = 2, **changes) -> float:
+    """Smoke-size float32 prefill, then ``steps`` greedy decode steps
+    (the decode path: RWKV's T == 1 branch, the MoE's decode routing, the
+    int8 KV cache's quantise, scatter and dequantise), on the card vs on
+    the CPU: every step's logits agree within 1e-4.  Both devices decode
+    the CPU's greedy tokens.  ``changes`` replace config fields
+    (``kv_dtype="int8"``)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1424,23 +1671,47 @@ def reference_check(arch: str, prompt_len: int, max_len: int) -> float:
     from repro_torch.models import transformer as T
 
     cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
-                              dtype="float32")
+                              dtype="float32", **changes)
     params = T.tree_init(T.param_defs(cfg), cfg, 0, "cpu")
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, prompt_len))
-    logits = {}
+    prefill, decode = lm.make_prefill_step(cfg), lm.make_decode_step(cfg)
+    state, logits = {}, {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.to(dev), params)
         batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32,
                                            device=dev)}
-        _, lg = lm.make_prefill_step(cfg)(p, batch,
-                                          T.init_cache(cfg, 1, max_len, dev))
-        logits[dev] = lg.float().cpu()
-    err = float((logits["cpu"] - logits["cuda"]).abs().max())
-    print(f"[reference] {arch} smoke float32 prefill of {prompt_len} tokens, "
-          f"logits cuda vs cpu: max_abs_err={err:.3e}", flush=True)
-    assert bool(torch.isfinite(logits["cuda"]).all())
-    assert err < 1e-4, err
-    return err
+        caches, lg = prefill(p, batch, T.init_cache(cfg, 1, max_len, dev))
+        state[dev] = (p, caches)
+        logits[dev] = [lg.float().cpu()]
+    for i in range(steps):
+        nxt = int(torch.argmax(logits["cpu"][-1], dim=-1))
+        for dev in ("cpu", "cuda"):
+            p, caches = state[dev]
+            batch = {"tokens": torch.full((1, 1), nxt, dtype=torch.int32,
+                                          device=dev),
+                     "pos": torch.full((1, 1), prompt_len + i,
+                                       dtype=torch.int32, device=dev)}
+            caches, lg = decode(p, batch, caches)
+            state[dev] = (p, caches)
+            logits[dev].append(lg.float().cpu())
+    errs = [float((c - g).abs().max())
+            for c, g in zip(logits["cpu"], logits["cuda"])]
+    print(f"[reference] {arch}{changes or ''} smoke float32, logits cuda "
+          f"vs cpu: prefill of {prompt_len} tokens max_abs_err="
+          f"{errs[0]:.3e}, decode steps " +
+          ", ".join(f"{e:.3e}" for e in errs[1:]), flush=True)
+    assert all(bool(torch.isfinite(lg).all()) for lg in logits["cuda"])
+    assert max(errs) < 1e-4, errs
+    return max(errs)
+
+
+T0 = time.perf_counter()
+
+
+def lap(name: str) -> None:
+    """Print the seconds since the script started, after ``name``."""
+    print(f"[time] {name} done at {time.perf_counter() - T0:.1f}s",
+          flush=True)
 
 
 def main() -> int:
@@ -1479,6 +1750,11 @@ def main() -> int:
     k128 = kernel_phase(128)
     kernel_phase(2048)
     kernel_phase(2304, arch="recurrentgemma-2b")
+    # the families' layouts: float32 RWKV state beside bf16 shifts; int8
+    # K/V beside float32 scales and int32 lengths
+    kernel_phase(384, arch="rwkv6-1.6b")
+    kernel_phase(128, kv_dtype="int8")
+    lap("kernel phases")
     lru = rg_lru_phase(1, 2100, 2560)
     rg_lru_phase(4, 2048, 2560)
     rg_lru_phase(2, 1001, 776, timed=False)               # ragged, TMA
@@ -1488,6 +1764,11 @@ def main() -> int:
     fl = flash_phase(1, 2100, 10, 1, 256, window=2048)
     flash_phase(1, 2048, 14, 2, 64)
     flash_phase(1, 12, 14, 2, 64)   # the qwen2-0.5b serve path's prefill
+    # the other families' serve prefills (qwen2-moe, qwen2-vl, musicgen)
+    flash_phase(1, 12, 16, 16, 128)
+    flash_phase(1, 12, 28, 4, 128)
+    flash_phase(1, 12, 32, 32, 64)
+    lap("rg_lru and flash phases")
     stream_copy_checks()
     from repro_torch.benchmarks import vmem_stream
     _, sweep = counted(lambda: vmem_stream.run(device="cuda"))
@@ -1497,12 +1778,13 @@ def main() -> int:
     sc = stream_copy_phase(65536, 1024, [(1024, 2), (1024, 1), (1024, 4),
                                          (256, 2)])
     codec_decode_check()
+    lap("stream_copy phases")
     print(f"[h2d] pinned host->device 64 MiB: {pinned_h2d_gbps()} GB/s",
           flush=True)
     print(f"[d2d] copy_ on the card 256 MiB: {d2d_copy_gbps()} GB/s; "
           f"4 KiB copy_ + synchronize: {d2d_copy_latency_us()} us "
           f"(host)", flush=True)
-    page_kernels = ("pack_page", "install_pages")
+    page_kernels = PAGE_KERNELS
     qwen = serve_phase("qwen2-0.5b", [], 151936,
                        page_kernels + ("flash_attention",))
     access_serve_phase("qwen2-0.5b", [], qwen["result"],
@@ -1517,6 +1799,7 @@ def main() -> int:
                        ("auto",))
     codec_serve_phase("recurrentgemma-2b", hybrid_flags, hybrid["result"],
                       ("int8", "share"), 2100, 2304)
+    lap("qwen2-0.5b and recurrentgemma-2b serves")
     dirty_round_trip()
     fabric_failover_round_trip()
     unpaged = qwen["result"]            # the paged run's = unpaged tokens
@@ -1528,15 +1811,28 @@ def main() -> int:
                       page_kernels + ("flash_attention", "rg_lru_scan"))
     chaos_phase(unpaged)
     trace_phase(unpaged)
-    fleet_phases()
-    bench_phase()
+    lap("fabric, chaos and trace phases")
+    with cut_depth():
+        fleet_phases()
+    lap("fleet phases")
+    family_phases()
+    lap("family phases")
+    with cut_depth():
+        bench_phase()
+    lap("bench phase")
     reference_check("qwen2-0.5b", 12, 32)
     reference_check("recurrentgemma-2b", 40, 64)
+    for arch in ("qwen2-moe-a2.7b", "grok-1-314b", "qwen2-vl-7b",
+                 "musicgen-large"):
+        reference_check(arch, 12, 32)
+    reference_check("rwkv6-1.6b", 256, 320)     # two chunks of 128
+    reference_check("qwen2-0.5b", 12, 32, kv_dtype="int8")
+    lap("reference checks")
 
     # launches: summed over every counted run (the paged serves over
     # every access path, the codec and prefix-share serves, the fabric,
-    # chaos, trace and fleet serves, the Fig-8 sweep, the benchmarks and
-    # examples of the bench phase), each from 0
+    # chaos, trace, fleet and family serves, the Fig-8 sweep, the
+    # benchmarks and examples of the bench phase), each from 0
     launches = LAUNCHES
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
     kernels = [

@@ -1,16 +1,23 @@
-"""Block composition for the ``"attn"`` and ``"rec"`` block kinds.
+"""Block composition for the ``"attn"`` (dense or MoE FFN), ``"rec"``
+and ``"rwkv"`` block kinds.
 
 Twin of ``repro/models/transformer.py``: the same param and cache trees
 (nested dicts, flattened in sorted-key order), so the reference's
 weights and caches carry across leaf for leaf and a packed KV page has
-the same bytes on both sides.  Layers are grouped by
+the same bytes on both sides.  One divergence, kept on purpose (C.3 in
+ROADMAP.md): an ``"rwkv"`` layer's cache is the three-leaf tree
+``{"mix": {"S", "tm_x"}, "cm_x"}`` that the reference's prefill and
+decode produce and consume, without the dead ``mix.cm_x`` of the
+reference's ``init_cache``.  Layers are grouped by
 ``cfg.block_pattern`` (e.g. ``("rec", "rec", "attn")``):
 ``n_layers // len(pattern)`` pattern groups are stacked (leading axis) as
 ``groups/b0..b{p-1}``, and the remainder layers are the unstacked
 ``tail/t0..``.  The groups are applied in a Python loop where the
 reference scans; each group's cache is a view into the stacked tensors,
 updated in place (attention K/V) or written back (the fresh "len" and
-recurrent state).
+recurrent state).  Every block also returns its auxiliary loss (the MoE
+balance loss, else none), summed over the stack as the reference's
+``apply_blocks`` does.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import torch_dtype, tree_flatten, tree_unflatten
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (ParamDef, attention_apply,
                                        attention_cache_defs, attention_defs,
                                        check_supported, mlp_apply, mlp_defs,
@@ -42,8 +51,10 @@ def _map_defs(fn, defs):
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     ln = ParamDef((cfg.d_model,), (None,), init="zeros")
     if kind == "attn":
-        return {"ln1": ln, "attn": attention_defs(cfg), "ln2": ln,
-                "ffn": mlp_defs(cfg)}
+        ffn = moe_mod.moe_defs(cfg) if cfg.moe is not None else mlp_defs(cfg)
+        return {"ln1": ln, "attn": attention_defs(cfg), "ln2": ln, "ffn": ffn}
+    if kind == "rwkv":
+        return {"ln1": ln, "ln2": ln, "mix": rwkv_mod.rwkv_defs(cfg)}
     if kind == "rec":
         return {"ln1": ln, "rec": rglru_defs(cfg), "ln2": ln,
                 "ffn": mlp_defs(cfg)}
@@ -54,6 +65,10 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                      max_len: int) -> Dict[str, Any]:
     if kind == "attn":
         return {"attn": attention_cache_defs(cfg, batch, max_len)}
+    if kind == "rwkv":
+        # the tree prefill and decode pass on (module note: C.3)
+        return {"mix": rwkv_mod.rwkv_state_defs(cfg, batch),
+                "cm_x": ParamDef((batch, cfg.d_model), ("batch", None))}
     if kind == "rec":
         return {"rec": rglru_state_defs(cfg, batch)}
     raise ValueError(kind)
@@ -61,8 +76,19 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
                 cache=None):
-    """One block of ``kind``. Returns (x, new_cache)."""
+    """One block of ``kind``. Returns (x, new_cache, aux); ``aux`` is
+    the MoE balance loss (a float32 scalar) or None."""
+    aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "rwkv":
+        o, tm = rwkv_mod.rwkv_time_mix(
+            cfg, p["mix"], h, mode=mode,
+            state=None if cache is None else cache["mix"])
+        x = x + o
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        o, cm_x = rwkv_mod.rwkv_channel_mix(cfg, p["mix"], h, mode=mode,
+                                            state=cache)
+        return x + o, {"mix": tm, "cm_x": cm_x}, aux
     if kind == "attn":
         o, new = attention_apply(
             cfg, p["attn"], h, mode=mode, pos=pos,
@@ -74,8 +100,11 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
         raise ValueError(kind)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(cfg, p["ffn"], h)
-    return x, {kind: new}
+    if kind == "attn" and cfg.moe is not None:
+        o, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
+    else:
+        o = mlp_apply(cfg, p["ffn"], h)
+    return x + o, {kind: new}, aux
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +172,12 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
     dt = torch_dtype(d.dtype or cfg.dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dt, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == "decay":           # rwkv w0: spread of slow-to-fast decays
+        n = int(np.prod(d.shape))
+        return torch.linspace(-6.0, -3.0, n, dtype=torch.float32,
+                              device=device).reshape(d.shape).to(dt)
     if d.init == "lru_lambda":      # a in ~[0.9, 0.999]
         u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
                        device=device)
@@ -155,6 +190,8 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
         return (0.02 * noise).to(dt)
     if d.init == "normal_in":
         fan = d.shape[0]
+    elif d.init == "normal1":
+        fan = d.shape[1]
     elif d.init == "normal":        # all-but-last is fan-in
         fan = max(1, int(np.prod(d.shape[:-1])))
     else:
@@ -173,6 +210,8 @@ def tree_init(defs, cfg: ModelConfig, seed: int, device) -> Any:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Zeros, as the reference's ``init_cache`` (the int8 KV cache's
+    scales too, though their defs say ``"ones"``)."""
     defs = cache_defs(cfg, batch, max_len)
     return _map_defs(lambda d: torch.zeros(
         d.shape, dtype=torch_dtype(d.dtype or cfg.dtype), device=device),
@@ -203,25 +242,31 @@ def _write_into(cache: dict, new: dict) -> None:
 def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
                  caches: Optional[dict] = None):
     """Run every layer: the stacked groups in a Python loop, then the
-    tail.  Returns (x, caches): ``caches`` are the given cache tensors,
-    updated in place (None when none were given)."""
+    tail.  Returns (x, caches, aux): ``caches`` are the given cache
+    tensors, updated in place (None when none were given); ``aux`` is
+    the float32 sum of the blocks' auxiliary losses."""
     n_groups, n_tail = _group_layout(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(kind, p, x, cache):
+        nonlocal aux_total
+        x, nc, aux = block_apply(cfg, kind, p, x, mode=mode, pos=pos,
+                                 cache=cache)
+        if cache is not None:
+            _write_into(cache, nc)
+        if aux is not None:
+            aux_total = aux_total + aux
+        return x
+
     gcaches = caches.get("groups") if caches else None
     for g in range(n_groups):
         for i, kind in enumerate(cfg.block_pattern):
             b = f"b{i}"
-            x, nc = block_apply(cfg, kind, _index(params["groups"][b], g), x,
-                                mode=mode, pos=pos,
-                                cache=None if gcaches is None
-                                else _index(gcaches[b], g))
-            if gcaches is not None:
-                _write_into(_index(gcaches[b], g), nc)
+            x = run(kind, _index(params["groups"][b], g), x,
+                    None if gcaches is None else _index(gcaches[b], g))
     tcaches = caches.get("tail") if caches else None
     for i in range(n_tail):
         t = f"t{i}"
-        x, nc = block_apply(cfg, cfg.block_pattern[i], params["tail"][t], x,
-                            mode=mode, pos=pos,
-                            cache=None if tcaches is None else tcaches[t])
-        if tcaches is not None:
-            _write_into(tcaches[t], nc)
-    return x, caches
+        x = run(cfg.block_pattern[i], params["tail"][t], x,
+                None if tcaches is None else tcaches[t])
+    return x, caches, aux_total

@@ -145,8 +145,13 @@ def test_mlp_apply():
 
 
 def test_unported_features_raise():
-    cfg = port_config("qwen2-vl-7b")
-    with pytest.raises(NotImplementedError):
+    """Every arch of ``ARCHS`` runs in the port, the int8 KV cache
+    included; only a block kind that no model has is refused."""
+    from repro_torch.configs import ARCHS
+    for arch in ARCHS:
+        cfg = port_config(arch)
         PL.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        PL.check_supported(port_config("rwkv6-1.6b"))
+        PL.check_supported(dataclasses.replace(cfg, kv_dtype="int8"))
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        PL.check_supported(dataclasses.replace(
+            port_config("qwen2-0.5b"), block_pattern=("attn", "mamba")))

@@ -7,6 +7,7 @@ source, each byte written once, the served layouts in one launch, long
 layouts and many pages split into counted launches), and the install
 timer of ``benchmarks/install_host.py`` on the plain version."""
 import bisect
+import dataclasses
 import ctypes
 import pathlib
 import re
@@ -360,18 +361,32 @@ def test_pack_tables_write_every_byte_once(case):
     assert len(tables) == 1
 
 
-@pytest.mark.parametrize("arch,max_len,n_leaves", [
-    ("qwen2-0.5b", 128, 3), ("qwen2-0.5b", 2048, 3),
-    ("recurrentgemma-2b", 2304, 11)])
+# the full-width layouts chip_smoke.py serves: (arch, max_len, leaves);
+# "+int8kv" is the arch with kv_dtype="int8" (int8 K/V, float32 scales)
+SERVED = [("qwen2-0.5b", 128, 3), ("qwen2-0.5b", 2048, 3),
+          ("recurrentgemma-2b", 2304, 11), ("qwen2-moe-a2.7b", 128, 3),
+          ("qwen2-vl-7b", 128, 3), ("musicgen-large", 128, 3),
+          ("rwkv6-1.6b", 384, 3), ("qwen2-0.5b+int8kv", 128, 5)]
+
+
+def _served_cfg(arch):
+    from repro_torch.configs import get_config
+    if arch.endswith("+int8kv"):
+        return dataclasses.replace(get_config(arch[:-len("+int8kv")]),
+                                   kv_dtype="int8")
+    return get_config(arch)
+
+
+@pytest.mark.parametrize("arch,max_len,n_leaves", SERVED)
 def test_served_layouts_fit_one_launch(arch, max_len, n_leaves):
     """The full-width layouts that chip_smoke.py serves: their non-empty
     leaves fit one launch's table, in page order, and the table's blocks
     cover each leaf's words."""
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as PT
-    cfg = get_config(arch)
+    cfg = _served_cfg(arch)
     layout = P.page_layout(PT.init_cache(cfg, 1, max_len, "meta"),
                            PT.init_cache(cfg, 4, max_len, "meta"), 4)
+    assert not layout.fallback_indices()
     ptrs = [(1 << 30) + (i << 26) for i in range(len(layout.leaves))]
     (table,) = P.pack_tables(layout, ptrs, 1 << 34)
     assert table.n == n_leaves == sum(sp.nbytes > 0 for sp in layout.leaves)
@@ -520,9 +535,8 @@ def _ragged(batch):
 
 
 def _served(arch, max_len, batch):
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as PT
-    cfg = get_config(arch)
+    cfg = _served_cfg(arch)
     return (PT.init_cache(cfg, 1, max_len, "meta"),
             PT.init_cache(cfg, batch, max_len, "meta"))
 
@@ -584,21 +598,22 @@ def test_install_tables_write_every_byte_once(case, B, G):
             (0, 146, 1), (0, 68, 1)]
 
 
-@pytest.mark.parametrize("arch,max_len,n_leaves", [
-    ("qwen2-0.5b", 128, 3), ("qwen2-0.5b", 2048, 3),
-    ("recurrentgemma-2b", 2304, 11)])
+@pytest.mark.parametrize("arch,max_len,n_leaves", SERVED)
 @pytest.mark.parametrize("B", [4, 128])
 def test_served_layouts_install_in_one_launch(arch, max_len, n_leaves, B):
     """The layouts chip_smoke.py serves take one install launch for
-    every G from 1 to the batch, with 32-bit indices, and the table's
-    blocks cover every leaf's rows."""
+    every G from 1 to the batch, with 32-bit indices where every batch
+    leaf is under 2 GiB (64-bit past it: musicgen's 12.9 GB K leaf at
+    B=128), and the table's blocks cover every leaf's rows."""
     single, batch = _served(arch, max_len, B)
     layout = P.page_layout(single, batch, B)
+    big = max(int(np.prod(sp.batch_shape)) * sp.itemsize
+              for sp in layout.leaves) >= 2 ** 31
     ptrs = [(1 << 36) + (i << 32) for i in range(len(layout.leaves))]
     for G in sorted({1, 2, B // 2, B}):
         addrs = [(1 << 44) + g * layout.page_bytes for g in range(G)]
         tables, wide = P.install_tables(layout, ptrs, addrs, range(G))
-        assert len(tables) == 1 and not wide, G
+        assert len(tables) == 1 and wide == big, G
         (t,) = tables
         assert (t.n_leaves, t.n_pages, t.batch) == (n_leaves, G, B)
         first = 0
