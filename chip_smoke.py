@@ -49,6 +49,18 @@ and it stops at the first failing phase with a non-zero exit:
    also holds each 64-row block's relative RMS error within 1e-2;
    ``scaled_dot_product_attention`` with an explicit boolean mask is
    timed beside it as a yardstick the port never calls;
+   then the training route of both model kernels (ROADMAP A.6): the
+   flash kernel's row logsumexp ``lse`` and ``FlashAttention``'s
+   gradients (the kernel forward, the PyTorch backward
+   ``flash_attention_bwd``) against autograd through the float32 plain
+   version on the card, in bf16 at qwen2-0.5b's train shape (8, 128,
+   14/2, 64), recurrentgemma-2b's (8, 128, 10/1, 256, window 2048), a
+   window shorter than S (2, 300, 8/2, 128, window 64) and grok's 48/8
+   x 128 with its cap of 30, within 2e-2, and in float32 at smoke size
+   within 1e-4; ``RgLruScan``'s gradients (forward and reversed scan on
+   the kernel) against autograd through ``rg_lru_scan_torch`` at (8,
+   128, 2560), (2, 97, 130) with h0 and T = 1; the forward with and
+   without ``lse`` and the backward timed at qwen2-0.5b's train shape;
 5. ``stream_copy`` phase: holds the kernel byte for byte against its
    input on the reference test's grid and the full Fig-8 grid in
    float32, bfloat16 and int32 (-0.0 and NaN payloads planted), runs the
@@ -141,11 +153,27 @@ and it stops at the first failing phase with a non-zero exit:
    share one draw of its weights, freed before the next arch draws its
    own.  ``[family]`` lines print TTFT
    and TPOT p50/p99 of the three runs and the paged run's launches;
-12. bench phase (the same cut of depth; a ``[time]`` line after each
+12. training phases, each through ``repro_torch.launch.train.main``
+   at full width, bf16, seed 0, the synthetic corpus, batch 8 x 128
+   tokens, lr 3e-3 (the CLI's defaults), counted: qwen2-0.5b for 20
+   steps; qwen2-0.5b for 10 steps with ``--ckpt-every 10`` into a
+   temporary directory under ``build/`` (deleted afterwards), then a
+   second run resuming from step 10 for 4 steps (every restored leaf's
+   sha256 held to the manifest, the last checkpoint at step 14);
+   qwen2-0.5b for 4 steps with ``--offload-optimizer`` (the engine moves
+   2 x ``host_bytes`` a step, ``host_bytes`` = 8 B x params);
+   recurrentgemma-2b for 10 steps.  Losses finite, ``failures == 0``,
+   the plain runs' last loss below their first, and the launches a step
+   of ``TRAIN_LAUNCHES``; each ``[train]`` line prints step time,
+   tokens/s, the share 6 N tokens / step time of the dense bf16 peak and
+   the peak device memory.  The allocator grows segments
+   (``expandable_segments``) so the full-width optimizer's temporaries
+   find room;
+13. bench phase (the same cut of depth; a ``[time]`` line after each
    module): ``repro_torch.benchmarks.run --quick`` on the card (the
-   paper's channel, contention, completion, RDMA-analogue, far-memory,
-   overlap, fabric, chaos, serving-SLO, install and KV-capacity
-   benchmarks; far-memory's
+   paper's channel, contention, completion, RDMA-analogue, Table 1
+   offload-step, far-memory, overlap, fabric, chaos, serving-SLO,
+   install, KV-capacity and end-to-end train-step benchmarks; far-memory's
    path-selection sweep and full-width qwen2-0.5b serves over every
    access path, the full-width qwen2-0.5b serves of the chaos soak,
    ``serve_slo`` and ``kv_capacity``, with their JSON under
@@ -161,12 +189,16 @@ and it stops at the first failing phase with a non-zero exit:
    ``bitexact_bf16`` and ``bitexact_share``.  Speed and policy ratios
    (``ok_replicas``, ``ok_slo``, ``share_admit_uplift``) are printed,
    not held;
-13. reference check: at the smoke size in float32, the logits of the
+14. reference check: at the smoke size in float32, the logits of the
    prefill and of two greedy decode steps after it, of every served
    arch, on the card agree with the CPU's within 1e-4 (the hybrid
    prompt of 40 tokens overruns its window of 32; RWKV's of 256 tokens
    runs two chunks, its decode the T == 1 branch; qwen2-0.5b also with
    the int8 KV cache, whose decode quantises, stores and dequantises).
+   Then the training reference check: at the smoke size in float32
+   (labelled reduced), every arch's loss and gradient leaves on one
+   batch and two train steps, card vs CPU: every card gradient leaf
+   nonzero and within 1e-3 of the CPU's, the losses within 1e-4.
    A ``[time]`` line after each group of phases gives the seconds since
    the start;
 
@@ -175,7 +207,9 @@ paged serves over every access path, the capacity serves, the fabric,
 chaos, trace, fleet and family serves, the Fig-8 sweep, the bench
 phase's benchmarks and examples) and read just after;
 the ``kernels`` line sums them, and gives the fleet serves' share as
-``fleet_launches``.  Last it prints the card line, the
+``fleet_launches`` and the training runs' as ``train_launches`` (flash
+also the train-shape forward, ``lse`` and backward times; a
+``train_runs`` line before it holds each training run's numbers).  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
 from __future__ import annotations
@@ -1705,6 +1739,372 @@ def reference_check(arch: str, prompt_len: int, max_len: int,
     return max(errs)
 
 
+# ---------------------------------------------------------------------------
+# training (ROADMAP A.6)
+# ---------------------------------------------------------------------------
+
+def _grad_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    w = want.float()
+    return float((got.float() - w).abs().max() / w.abs().max().clamp_min(
+        1e-30))
+
+
+def flash_train_check(B, S, H, KV, dh, dtype, tol, **kw) -> dict:
+    """The kernel's ``lse`` and ``FlashAttention``'s gradients (the
+    kernel forward, then ``flash_attention_bwd`` reading its o and lse)
+    against autograd through the float32 plain version
+    (``attention_chunked``) on the card, on the same inputs.  Held: o
+    within ``tol`` (abs + rel), lse within ``tol`` abs, dq/dk/dv within
+    ``tol`` of the largest gradient."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv(B, S, H, KV, dh, dtype, seed=7 * S + H + dh)
+    if kw.get("logit_cap"):
+        q, k = 5.0 * q, 5.0 * k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + dh)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    o, lse = FA._launch(q, k, v, kw.get("causal", True), kw.get("window"),
+                        None, kw.get("logit_cap"), want_lse=True)
+    qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+    want_o, want_lse = FA.attention_chunked(qf, kf, vf, return_lse=True,
+                                            **kw)
+    want = torch.autograd.grad(want_o, (qf, kf, vf), do.float())
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    got_o = FA.flash_attention(qg, kg, vg, **kw)
+    assert got_o.grad_fn is not None, "flash under autograd: no grad_fn"
+    got = torch.autograd.grad(got_o, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    want_o, want_lse = want_o.detach(), want_lse.detach()
+    res = {"o_err": float((o.float() - want_o.float()).abs().max()),
+           "lse_err": float((lse - want_lse.float()).abs().max()),
+           "grad_err": max(_grad_err(g, w) for g, w in zip(got, want))}
+    print(f"[train-flash] B={B} S={S} H={H} KV={KV} dh={dh} {dtype} {kw} "
+          f"o_err={res['o_err']:.3e} lse_err={res['lse_err']:.3e} "
+          f"dqkv_rel_err={res['grad_err']:.3e} (plain float32, autograd)",
+          flush=True)
+    bad = (o.float() - want_o.float()).abs() > tol + tol * \
+        want_o.float().abs()
+    assert not bool(bad.any()), res
+    assert res["lse_err"] <= tol, res
+    assert res["grad_err"] <= tol, res
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in got), "flash backward: zero or non-finite grads"
+    return res
+
+
+def flash_train_timing(B, S, H, KV, dh) -> dict:
+    """bf16 at a train shape: the kernel forward without and with
+    ``lse``, and ``flash_attention_bwd`` (plain PyTorch), device ms."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv(B, S, H, KV, dh, torch.bfloat16, seed=3)
+    do = torch.randn_like(q)
+    o, lse = FA._launch(q, k, v, True, None, None, None, want_lse=True)
+    pairs = live_pairs(S, True, None)
+    elems = B * S * (H + 2 * KV) * dh
+    fwd_bytes = 2 * elems + 2 * B * S * H * dh
+    # backward: read q, k, v, o, do and lse, write dq, dk, dv; five
+    # products over the live pairs (S again, dP, dV, dQ, dK)
+    bwd_bytes = 2 * (elems + 2 * B * S * H * dh) + 4 * B * H * S + \
+        2 * elems
+    bwd_flops = 10 * B * H * dh * pairs
+    t = {"fwd_ms": device_time_ms(lambda: FA._launch(
+            q, k, v, True, None, None, None)),
+         "fwd_lse_ms": device_time_ms(lambda: FA._launch(
+             q, k, v, True, None, None, None, want_lse=True)),
+         "bwd_ms": device_time_ms(lambda: FA.flash_attention_bwd(
+             q, k, v, o, lse, do), calls=5, repeats=5),
+         "bwd_bound_ms": max(bwd_flops / BF16_FLOPS,
+                             bwd_bytes / HBM_BYTES_PER_S) * 1e3,
+         "fwd_bound_ms": max(4 * B * H * dh * pairs / BF16_FLOPS,
+                             fwd_bytes / HBM_BYTES_PER_S) * 1e3}
+    print(f"[train-flash] timed bf16 B={B} S={S} H={H} KV={KV} dh={dh}: "
+          f"forward {t['fwd_ms']:.5f} ms, with lse {t['fwd_lse_ms']:.5f} "
+          f"ms (bound {t['fwd_bound_ms']:.5f}); backward (PyTorch) "
+          f"{t['bwd_ms']:.5f} ms (bound {t['bwd_bound_ms']:.5f})",
+          flush=True)
+    return t
+
+
+def rg_lru_train_check(B, T, W, h0: bool) -> float:
+    """``RgLruScan``'s da/db/dh0 (the reversed scan on the kernel)
+    against autograd through ``rg_lru_scan_torch`` on the card; returns
+    the largest error over the largest gradient (held to 1e-6)."""
+    import torch
+    from repro_torch.kernels import rg_lru as R
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(T + W)
+    a = 0.8 + 0.199 * torch.rand((B, T, W), generator=gen, device="cuda")
+    b = torch.randn((B, T, W), generator=gen, device="cuda")
+    hz = torch.randn((B, W), generator=gen, device="cuda") if h0 else None
+    dh = torch.randn((B, T, W), generator=gen, device="cuda")
+    ins = [a, b] + ([hz] if h0 else [])
+    got_in = [x.clone().requires_grad_() for x in ins]
+    want_in = [x.clone().requires_grad_() for x in ins]
+    n0 = R.rg_lru_scan.launches
+    got = torch.autograd.grad(R.rg_lru_scan(*got_in), got_in, dh)
+    assert R.rg_lru_scan.launches - n0 == 2, "forward + reversed scan"
+    want = torch.autograd.grad(R.rg_lru_scan_torch(*want_in), want_in, dh)
+    err = max(_grad_err(g, w) for g, w in zip(got, want))
+    equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    print(f"[train-rg_lru] backward B={B} T={T} W={W} h0={h0}: "
+          f"rel_err={err:.3e} bit_equal={equal} (autograd through the "
+          f"plain loop)", flush=True)
+    assert err <= 1e-6, err
+    return err
+
+
+def train_kernel_checks() -> dict:
+    """Flash (lse + backward) and rg_lru (backward) at the training
+    shapes, then the flash timings at qwen2-0.5b's train shape."""
+    import torch
+    bf = torch.bfloat16
+    errs = [flash_train_check(8, 128, 14, 2, 64, bf, 2e-2),
+            flash_train_check(8, 128, 10, 1, 256, bf, 2e-2, window=2048),
+            flash_train_check(2, 300, 8, 2, 128, bf, 2e-2, window=64),
+            flash_train_check(1, 128, 48, 8, 128, bf, 2e-2, logit_cap=30.0),
+            flash_train_check(2, 40, 4, 2, 16, torch.float32, 1e-4,
+                              window=9, logit_cap=30.0),
+            flash_train_check(2, 32, 4, 2, 16, torch.float32, 1e-4)]
+    lru = [rg_lru_train_check(8, 128, 2560, False),
+           rg_lru_train_check(2, 97, 130, True),
+           rg_lru_train_check(3, 1, 64, True)]
+    t = flash_train_timing(8, 128, 14, 2, 64)
+    t.update(lse_err=max(e["lse_err"] for e in errs[:4]),
+             grad_err=max(e["grad_err"] for e in errs[:4]),
+             rg_lru_bwd_err=max(lru))
+    return t
+
+
+STEP_TIMES = []          # (step, seconds) of the last training run
+RESTORED = []            # (step, leaves) of each digest-checked restore
+OFFLOADED = []           # (bytes moved, host_bytes) of each offload step
+
+
+def _train_hooks():
+    """Patch the training loop's monitor, checkpoint manager and
+    offloaded optimizer with subclasses that record step times, check a
+    restore's digests against its manifest, and count the bytes each
+    offloaded step moves."""
+    import json as _json
+    from repro_torch.checkpoint import manager as M
+    from repro_torch.launch import train as TR
+    if getattr(TR, "_hooked", False):
+        return TR
+
+    class TimedMonitor(TR.StragglerMonitor):
+        def record(self, step, seconds):
+            STEP_TIMES.append((step, seconds))
+            return super().record(step, seconds)
+
+    class CheckedManager(TR.CheckpointManager):
+        def restore(self, like, step=None, shardings=None):
+            step, tree = super().restore(like, step, shardings)
+            with open(os.path.join(self.dir, f"step_{step:010d}",
+                                   "manifest.json")) as f:
+                want = {e["name"]: e["sha256"]
+                        for e in _json.load(f)["leaves"]}
+            pairs = M._flatten_with_path(tree)
+            for path, leaf in pairs:
+                name = M._leaf_name(path)
+                got = M._digest(M._host_bytes(leaf))
+                assert got == want[name], (name, got, want[name])
+            RESTORED.append((step, len(pairs)))
+            return step, tree
+
+    class CountedOffload(TR.HostOffloadedOptimizer):
+        def step(self, params, grads, step_idx):
+            before = self.engine.stats()["bytes_moved"]
+            out = super().step(params, grads, step_idx)
+            OFFLOADED.append((self.engine.stats()["bytes_moved"] - before,
+                              self.host_bytes()))
+            return out
+
+    TR.StragglerMonitor = TimedMonitor
+    TR.CheckpointManager = CheckedManager
+    TR.HostOffloadedOptimizer = CountedOffload
+    TR._hooked = True
+    return TR
+
+
+def n_params(arch: str) -> int:
+    """The parameter count of ``arch``'s tree, from its defs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import transformer as T
+    return sum(int(np.prod(d.shape))
+               for d in tree_leaves(T.param_defs(get_config(arch))))
+
+
+# flash and rg_lru launches a step at full width: every attention layer's
+# forward plus its remat recompute; every recurrent layer's forward, the
+# recompute of the 16 in remat groups (the 2 tail layers are not
+# rematerialised, as in the reference) and its reversed gradient scan
+TRAIN_LAUNCHES = {"qwen2-0.5b": {"flash_attention": 48, "rg_lru_scan": 0},
+                  "recurrentgemma-2b": {"flash_attention": 16,
+                                        "rg_lru_scan": 52}}
+TRAIN_RUNS = []
+TRAIN_LAUNCHES_TOTAL = {}  # launches of the counted training runs
+
+
+def train_run(label: str, arch: str, argv, steps: int) -> dict:
+    """``repro_torch.launch.train.main`` at full width, bf16, seed 0,
+    counted: losses finite and falling, no failure, the launches a step
+    of ``TRAIN_LAUNCHES``; prints step time (median of the steps after
+    the first), tokens/s, the share of the card's dense bf16 peak
+    (6 N tokens / step time) and the peak device memory."""
+    import math
+    import statistics
+    import torch
+    TR = _train_hooks()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    STEP_TIMES.clear()
+    res, launches = counted(lambda: TR.main(
+        ["--arch", arch, "--log-every", "5"] + argv))
+    times = [t for _, t in STEP_TIMES]
+    losses = res["losses"]
+    assert len(losses) == steps and all(map(math.isfinite, losses)), losses
+    assert res["failures"] == 0, res
+    for name, n in launches.items():
+        TRAIN_LAUNCHES_TOTAL[name] = TRAIN_LAUNCHES_TOTAL.get(name, 0) + n
+    per_step = {k: launches[k] / steps for k in TRAIN_LAUNCHES[arch]}
+    assert per_step == TRAIN_LAUNCHES[arch], (label, per_step)
+    tokens = 8 * 128
+    step_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    n = n_params(arch)
+    row = {"label": label, "arch": arch, "steps": steps,
+           "first_loss": losses[0], "final_loss": losses[-1],
+           "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+           "tok_per_s": tokens / step_s,
+           "bf16_peak_share": 6 * n * tokens / step_s / BF16_FLOPS,
+           "params": n, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": per_step, "seconds": res["seconds"]}
+    print(f"[train] {label} {arch} steps={steps} loss "
+          f"{losses[0]:.4f}->{losses[-1]:.4f} step_ms={row['step_ms']:.1f} "
+          f"(first {row['first_step_ms']:.1f}) tok/s={row['tok_per_s']:.0f} "
+          f"6NT_share_of_bf16_peak={row['bf16_peak_share']:.4f} "
+          f"params={n} peak_mem_GB={row['peak_gb']:.2f} "
+          f"launches/step={per_step}", flush=True)
+    TRAIN_RUNS.append(row)
+    return row
+
+
+def train_phases() -> None:
+    """The four full-width runs: qwen2-0.5b plain (20 steps), with a
+    checkpoint at step 10 and a resumed run to step 14, with the
+    host-offloaded optimizer (4 steps); recurrentgemma-2b plain (10
+    steps)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    q = "qwen2-0.5b"
+    plain = train_run("plain", q, ["--steps", "20"], 20)
+    assert plain["final_loss"] < plain["first_loss"], plain
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        RESTORED.clear()
+        first = train_run("ckpt", q, ["--steps", "10", "--ckpt-dir", d,
+                                      "--ckpt-every", "10"], 10)
+        resumed = train_run("resume", q, ["--steps", "4", "--ckpt-dir", d,
+                                          "--ckpt-every", "10"], 4)
+        mgr = CheckpointManager(d, device="cuda")
+        steps = mgr.all_steps()
+        mgr.close()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f"step_{s:010d}",
+                                                      f))
+                         for s in steps[-1:] for f in os.listdir(
+                             os.path.join(d, f"step_{s:010d}")))
+        print(f"[train] resume: restored={RESTORED} (every leaf's digest "
+              f"held to the manifest) checkpoints={steps} "
+              f"bytes_on_disk={ckpt_bytes} loss {first['first_loss']:.4f}"
+              f"->{first['final_loss']:.4f} then "
+              f"{resumed['first_loss']:.4f}->{resumed['final_loss']:.4f}",
+              flush=True)
+        assert RESTORED and RESTORED[0][0] == 10, RESTORED
+        assert steps[-1] == 14, steps
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    OFFLOADED.clear()
+    off = train_run("offload", q, ["--steps", "4", "--offload-optimizer"],
+                    4)
+    moved = [b for b, _ in OFFLOADED]
+    host = OFFLOADED[0][1]
+    print(f"[train] offload: host_bytes={host} (8 B x {n_params(q)} "
+          f"params) moved/step={moved}", flush=True)
+    assert host == 8 * n_params(q), host
+    assert all(b == 2 * host for b in moved), moved
+    off["host_bytes"] = host
+    hyb = train_run("plain", "recurrentgemma-2b", ["--steps", "10"], 10)
+    assert hyb["final_loss"] < hyb["first_loss"], hyb
+    free_card()
+
+
+def train_reference_check(arch: str, steps: int = 2) -> dict:
+    """Smoke size, float32, seed 0: loss and every gradient leaf of one
+    batch, then ``steps`` train steps, on the card vs on the CPU.  Every
+    card gradient leaf is nonzero and within 1e-3 of the CPU's (over
+    the leaf's largest; float32 sums in another order, through the
+    recurrence at worst); the losses of the steps within 1e-4; the
+    params after them are printed (AdamW's first steps move a param by
+    about lr times the sign of its gradient, so a gradient within
+    rounding of zero moves it either way)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import for_arch
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              dtype="float32")
+    params = T.tree_init(T.param_defs(cfg), cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 33)).astype(np.int32)
+    opt = for_arch(arch, lr=1e-3, warmup_steps=1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        (loss, _), grads = lm.value_and_grad(cfg, p, batch)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = lm.make_train_step(cfg, opt)
+        losses = [float(loss)]
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        out[dev] = (losses, [g.cpu() for g in tree_leaves(grads)],
+                    [t.cpu() for t in tree_leaves(state["params"])])
+    loss_err = max(abs(a - b) for a, b in zip(out["cpu"][0],
+                                              out["cuda"][0]))
+    grad_err = max(_grad_err(g, c) for g, c in zip(out["cuda"][1],
+                                                   out["cpu"][1]))
+    param_err = max(_grad_err(g, c) for g, c in zip(out["cuda"][2],
+                                                    out["cpu"][2]))
+    zero = sum(float(g.abs().max()) == 0 for g in out["cuda"][1])
+    print(f"[train-reference] {arch} smoke float32 (reduced), cuda vs cpu: "
+          f"loss_err={loss_err:.3e} over {steps} steps, "
+          f"grad_rel_err={grad_err:.3e} over {len(out['cuda'][1])} leaves "
+          f"(zero leaves {zero}), params_rel_err={param_err:.3e}",
+          flush=True)
+    assert zero == 0, f"{arch}: {zero} gradient leaves are zero on the card"
+    assert loss_err <= 1e-4 and grad_err <= 1e-3, \
+        (arch, loss_err, grad_err, param_err)
+    return {"loss_err": loss_err, "grad_err": grad_err}
+
+
 T0 = time.perf_counter()
 
 
@@ -1715,6 +2115,11 @@ def lap(name: str) -> None:
 
 
 def main() -> int:
+    # the training phases' full-width optimizer steps allocate multi-GB
+    # float32 temporaries between the backward's freed blocks: grow
+    # segments instead of splitting cached ones (set before CUDA starts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1769,6 +2174,8 @@ def main() -> int:
     flash_phase(1, 12, 28, 4, 128)
     flash_phase(1, 12, 32, 32, 64)
     lap("rg_lru and flash phases")
+    train_k = train_kernel_checks()
+    lap("training kernel checks")
     stream_copy_checks()
     from repro_torch.benchmarks import vmem_stream
     _, sweep = counted(lambda: vmem_stream.run(device="cuda"))
@@ -1817,6 +2224,8 @@ def main() -> int:
     lap("fleet phases")
     family_phases()
     lap("family phases")
+    train_phases()
+    lap("training phases")
     with cut_depth():
         bench_phase()
     lap("bench phase")
@@ -1828,6 +2237,10 @@ def main() -> int:
     reference_check("rwkv6-1.6b", 256, 320)     # two chunks of 128
     reference_check("qwen2-0.5b", 12, 32, kv_dtype="int8")
     lap("reference checks")
+    from repro_torch.configs import ARCHS
+    for arch in ARCHS:
+        train_reference_check(arch)
+    lap("training reference checks")
 
     # launches: summed over every counted run (the paged serves over
     # every access path, the codec and prefix-share serves, the fabric,
@@ -1880,8 +2293,20 @@ def main() -> int:
          "library_note": "Tensor.copy_ into a preallocated tensor"},
     ]
     for k in kernels:
-        # the part of ``launches`` the fleet serves made
+        # the parts of ``launches`` the fleet serves and the training
+        # runs made
         k["fleet_launches"] = FLEET_LAUNCHES.get(k["name"], 0)
+        k["train_launches"] = TRAIN_LAUNCHES_TOTAL.get(k["name"], 0)
+    # the training route: flash's lse and backward (plain PyTorch), the
+    # reversed rg_lru scan
+    kernels[2].update(
+        train_fwd_ms=train_k["fwd_ms"], train_fwd_lse_ms=train_k["fwd_lse_ms"],
+        train_bwd_ms=train_k["bwd_ms"], train_bwd_bound_ms=train_k[
+            "bwd_bound_ms"], train_lse_err=train_k["lse_err"],
+        train_grad_rel_err=train_k["grad_err"],
+        train_shape="bf16 (8, 128, 14/2, 64) causal")
+    kernels[3].update(train_bwd_rel_err=train_k["rg_lru_bwd_err"])
+    print(json.dumps({"train_runs": TRAIN_RUNS}), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

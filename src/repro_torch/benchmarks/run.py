@@ -15,10 +15,10 @@ artifacts by default, as the reference's CI smoke does.
 
 Ported: ``vmem_stream`` (Fig 8), ``host_device_bw`` (Figs 9-10,
 15-18), ``contention`` (Figs 11-12), ``completion_modes`` (Figs
-13-14), ``rdma_analogue`` (Figs 19-20), ``far_memory``, ``overlap``,
-``fabric``, ``chaos``, ``serve_slo``, ``install_path`` and
-``kv_capacity``.  Not ported yet, with the ROADMAP A item that brings
-them: ``offload_step`` and ``e2e_step`` (A.6).
+13-14), ``rdma_analogue`` (Figs 19-20),
+``offload_step`` (Table 1), ``far_memory``, ``overlap``, ``fabric``,
+``chaos``, ``serve_slo``, ``install_path``, ``kv_capacity`` and
+``e2e_step``: every module of the reference.
 
 ``main`` returns each module's result by name and exits non-zero when a
 module raised (every byte check of the modules raises).
@@ -31,9 +31,10 @@ import traceback
 
 from repro_torch import obs
 from repro_torch.benchmarks import (chaos, common, completion_modes,
-                                    contention, fabric, far_memory,
-                                    host_device_bw, install_path,
-                                    kv_capacity, overlap, rdma_analogue,
+                                    contention, e2e_step, fabric,
+                                    far_memory, host_device_bw,
+                                    install_path, kv_capacity,
+                                    offload_step, overlap, rdma_analogue,
                                     serve_slo, vmem_stream)
 from repro_torch.device import resolve_device
 
@@ -43,6 +44,7 @@ MODULES = [
     ("fig11_12_contention", contention),
     ("fig13_14_completion_modes", completion_modes),
     ("fig19_20_rdma_analogue", rdma_analogue),
+    ("tab1_offload_step", offload_step),
     ("farmem_tier_sweep", far_memory),
     ("serve_overlap", overlap),
     ("fabric_sweep", fabric),
@@ -50,6 +52,7 @@ MODULES = [
     ("serve_slo", serve_slo),
     ("install_path", install_path),
     ("kv_capacity", kv_capacity),
+    ("e2e_and_roofline", e2e_step),
 ]
 
 

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.cplane import Completion, default_reactor
 from repro_torch.device import resolve_device
+from repro_torch.interop import tree_leaves
 
 
 class Direction(enum.Enum):
@@ -274,6 +275,11 @@ class ChannelPool:
 
     def c2h(self, dev_arr, **kw) -> Transfer:
         return self.submit(dev_arr, Direction.C2H, **kw)
+
+    def h2c_tree(self, tree, **kw) -> List[Transfer]:
+        """H2C every leaf of a host tree, in jax's flatten order."""
+        return [self.submit(l, Direction.H2C, **kw)
+                for l in tree_leaves(tree)]
 
     def drain(self, transfers: Sequence[Transfer]) -> list:
         """Wait for every transfer; their results, in order."""

@@ -6,6 +6,11 @@ same nesting, and flattens it in jax's tree-flatten order: dict keys
 sorted.  bf16 arrives as numpy's ``bfloat16`` (from ``ml_dtypes``, which
 this module does not import): it is recognised by its dtype name and
 reinterpreted through a ``uint16`` view, so every bit is kept.
+
+A whole train state ``{"params", "opt", "step"}`` crosses the same way
+both ways (``tree_to_torch``, ``tree_to_numpy``): int32 ``step`` as a
+0-d tensor, bf16 moments (``optim.adamw.for_arch``'s grok policy)
+through their bits.
 """
 from __future__ import annotations
 
@@ -94,3 +99,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def tree_to_torch(tree, device="cpu"):
     """The reference's numpy tree (params or caches) as the port's."""
     return tree_map(lambda a: to_torch(a, device), tree)
+
+
+def tree_to_numpy(tree):
+    """The port's tree (params, caches or a train state) as numpy, bf16
+    leaves as their ``uint16`` bit patterns (``to_numpy``)."""
+    return tree_map(to_numpy, tree)

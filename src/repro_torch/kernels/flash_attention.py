@@ -20,6 +20,16 @@ which is the reference model's own prefill attention (online softmax over
 the CPU the port's model keeps the reference's order of operations.
 Nothing falls back from the card to the plain version.
 ``flash_attention.launches`` counts the kernel's launches.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through ``FlashAttention``, a ``torch.autograd.Function``: its
+forward is the kernel on the card (asked for the row logsumexp ``lse``
+as well) and ``attention_chunked`` on the CPU, and its backward is
+``flash_attention_bwd`` on both, plain PyTorch in q-chunks that rebuilds
+P from the forward's ``o`` and ``lse`` and never runs the forward again.
+The reference has no backward kernel (its training attends through
+``attention_chunked`` and lets XLA differentiate it), so neither has
+the port.
 """
 from __future__ import annotations
 
@@ -71,12 +81,15 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       chunk_q: int = 1024, chunk_k: int = 1024,
                       scale: Optional[float] = None,
-                      logit_cap: Optional[float] = None) -> torch.Tensor:
+                      logit_cap: Optional[float] = None,
+                      return_lse: bool = False):
     """q: (B,S,H,dh); k,v: (B,S,KV,dh) -> (B,S,H,dh). GQA attention.
 
     Every (q-chunk, kv-chunk) tile is computed and masked, as the
     reference's scanned path does; the running output stays in the input
-    dtype between tiles."""
+    dtype between tiles.  With ``return_lse`` it returns ``(o, lse)``:
+    ``lse`` (B, H, S) float32 is each row's ``m + log(l)``, the
+    logsumexp of its scaled, capped, masked scores."""
     B, S, H, dh = q.shape
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     cq, ck = min(chunk_q, S), min(chunk_k, S)
@@ -84,7 +97,7 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         cq = ck = S   # odd lengths (tests/short prompts): one full tile
     nq, nk = S // cq, S // ck
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         q0 = qi * cq
         qb = q[:, q0:q0 + cq]
@@ -105,9 +118,103 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             bias = torch.where(m, 0.0, NEG_INF).float()
             acc = _combine(acc, *_attend_tile(qb, kb, vb, bias, scale,
                                               logit_cap))
-        o, _, l = acc
-        outs.append(o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype))
+        o, mx, l = acc
+        l = torch.clamp(l, min=1e-30)
+        outs.append(o / l[..., None].to(o.dtype))
+        if return_lse:
+            lses.append((mx + torch.log(l)).permute(0, 2, 1))
+    if return_lse:
+        return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the backward, plain PyTorch on both devices
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        logit_cap: Optional[float] = None,
+                        chunk: int = 1024):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v),
+    given its output ``o``, its row logsumexp ``lse`` (B, H, S) and the
+    output's gradient ``do``.  Float32 inside, the inputs' dtype out.
+
+    Per q-chunk of ``chunk`` rows (memory O(chunk * S) a head):
+    D = rowsum(dO o O), P = exp(s - lse) under the forward's mask,
+    dV += P^T dO, dP = dO V^T, dS = P o (dP - D), through the cap
+    dS (1 - tanh^2(s / cap)), dQ = dS K scale, dK += dS^T Q scale; GQA's
+    dK and dV sum over each KV head's group of query heads."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, S, H, dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, S, KV, dh), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, S, KV, dh), dtype=torch.float32, device=dev)
+    # D = rowsum(dO o O): (B, S, H) -> (B, KV, G, S)
+    dsum = torch.sum(do.float() * o.float(), dim=-1)
+    dsum = dsum.reshape(B, S, KV, G).permute(0, 2, 3, 1)
+    lse4 = lse.reshape(B, KV, G, S)
+    ki = torch.arange(S, device=dev)[None, :]
+    cq = max(1, min(chunk, S))
+    for q0 in range(0, S, cq):
+        c = min(cq, S - q0)
+        sl = slice(q0, q0 + c)
+        qb = q[:, sl].float().reshape(B, c, KV, G, dh)
+        dob = do[:, sl].float().reshape(B, c, KV, G, dh)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf) * scale
+        if logit_cap is not None:
+            th = torch.tanh(s / logit_cap)
+            s = logit_cap * th
+        qi = q0 + torch.arange(c, device=dev)[:, None]
+        live = torch.ones((c, S), dtype=torch.bool, device=dev)
+        if causal:
+            live &= ki <= qi
+        if window is not None:
+            live &= ki > qi - window
+        p = torch.where(live, torch.exp(s - lse4[..., sl, None]), 0.0)
+        dv += torch.einsum("bkgqs,bqkgd->bskd", p, dob)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dob, vf)
+        ds = p * (dp - dsum[..., sl, None])
+        if logit_cap is not None:
+            ds = ds * (1.0 - th * th)
+        dq[:, sl] = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(
+            B, c, H, dh) * scale
+        dk += torch.einsum("bkgqs,bqkgd->bskd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd: the kernel (card) or
+    ``attention_chunked`` (CPU) forward, with its ``lse``, and
+    ``flash_attention_bwd`` backward on both devices."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, logit_cap, chunk):
+        if q.device.type == "cpu":
+            o, lse = attention_chunked(
+                q, k, v, causal=causal, window=window, chunk_q=chunk,
+                chunk_k=chunk, scale=scale, logit_cap=logit_cap,
+                return_lse=True)
+        else:
+            o, lse = _launch(q, k, v, causal, window, scale, logit_cap,
+                             want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        logit_cap=logit_cap, chunk=chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -217,12 +324,12 @@ def _kernels() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_f32_launch.argtypes = [
-            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, vp]
         lib.flash_attention_f32_launch.restype = i32
         spec = ctypes.POINTER(TmaSpec)
         lib.flash_attention_bf16_launch.argtypes = [
-            spec, spec, spec, vp, vp, ctypes.POINTER(FaPlan), i32, i32,
+            spec, spec, spec, vp, vp, vp, ctypes.POINTER(FaPlan), i32, i32,
             i32, i32, i32, i32, i32, f32, f32, vp]
         lib.flash_attention_bf16_launch.restype = i32
         lib._typed = True
@@ -263,16 +370,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,H,dh); k,v: (B,S,KV,dh) -> (B,S,H,dh).
 
     ``chunk`` is the plain version's tile (the model passes its
-    ``attn_chunk``, as the reference model does); the kernel has its own
-    tiles."""
+    ``attn_chunk``, as the reference model does) and the backward's q
+    chunk; the kernel has its own tiles.  With grad mode on and an input
+    that requires grad, the call is ``FlashAttention``'s."""
     _check(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale,
+                                    logit_cap, chunk)
     if q.device.type == "cpu":
         return attention_chunked(q, k, v, causal=causal, window=window,
                                  chunk_q=chunk, chunk_k=chunk, scale=scale,
                                  logit_cap=logit_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    return _launch(q, k, v, causal, window, scale, logit_cap)[0]
+
+
+def _launch(q, k, v, causal, window, scale, logit_cap,
+            want_lse: bool = False):
+    """The kernel on CUDA tensors: (o, lse), ``lse`` (B, H, S) float32
+    when ``want_lse`` (the serve path asks for none, and the kernel then
+    writes nothing extra), else None."""
     B, S, H, dh = q.shape
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention takes bf16 or float32, not "
@@ -285,14 +405,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if want_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_strides(t, name)
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     KV = k.shape[2]
     win = 0 if window is None else window
     cap = 0.0 if logit_cap is None else float(logit_cap)
+    lse_ptr = None if lse is None else lse.data_ptr()
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     if q.dtype == torch.bfloat16:
         specs = [tensor_map_spec(t, rows)
@@ -301,19 +424,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for pl in launch_plans(S, causal, window):
             build.check(_kernels().flash_attention_bf16_launch(
                 *(ctypes.byref(sp) for sp in specs), out.data_ptr(),
-                ctypes.cast(o_strides, ctypes.c_void_p), ctypes.byref(pl),
-                B, S, H, KV, dh, int(causal), win, float(scale), cap,
-                stream), "flash_attention")
+                lse_ptr, ctypes.cast(o_strides, ctypes.c_void_p),
+                ctypes.byref(pl), B, S, H, KV, dh, int(causal), win,
+                float(scale), cap, stream), "flash_attention")
             flash_attention.launches += 1
-        return out
+        return out, lse
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     table = (ctypes.c_longlong * 12)(*strides)
     build.check(_kernels().flash_attention_f32_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
         ctypes.cast(table, ctypes.c_void_p), B, S, H, KV, dh,
         int(causal), win, float(scale), cap, stream), "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0

@@ -12,6 +12,15 @@ PyTorch version beside it, ``rg_lru_scan_torch``.  Nothing falls back
 from the card to the plain version.  ``rg_lru_scan.launches`` counts the
 kernel's launches.
 
+Under autograd (grad mode on and an input that requires grad) the call
+goes through ``RgLruScan``, a ``torch.autograd.Function``.  Its backward
+is itself a linear recurrence, run backwards in time: with ``g`` the
+gradient flowing into ``h``, ``g_t = dh_t + a_{t+1} g_{t+1}`` (``a_T``
+is 0), so ``g`` is ``rg_lru_scan`` over the flipped
+``cat(a[:, 1:], 0)`` and the flipped ``dh``, flipped back (on the card
+the same kernel, one launch); then ``db = g``, ``da_t = g_t h_{t-1}``
+(``h_{-1}`` is ``h0`` or 0) and ``dh0 = a_0 g_0``.
+
 ``plan`` is the kernel's launch rule (channels per CTA, time steps per
 stage, ring depth, TMA or cp.async route) and ``tensor_map`` the TMA
 geometry it implies; the source note of ``csrc/rg_lru.cu`` explains both.
@@ -136,14 +145,44 @@ def _check(a: torch.Tensor, b: torch.Tensor,
                          f"{sorted(map(str, devs))}")
 
 
+class RgLruScan(torch.autograd.Function):
+    """``rg_lru_scan`` under autograd; the backward is the reversed scan
+    of the module note."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = _scan(a_next.flip(1), dh.flip(1)).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]) if h0 is None
+                            else h0[:, None], h[:, :-1]], dim=1)
+        dh0 = None if h0 is None else a[:, 0] * g[:, 0]
+        return g * h_prev, g, dh0
+
+
 def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """a, b: (B, T, W) float32; h0: (B, W) float32 or None -> h (B, T, W)."""
     _check(a, b, h0)
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rg_lru_scan runs on cuda or cpu, not {a.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return RgLruScan.apply(a, b, h0)
+    return _scan(a, b, h0)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor,
+          h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain loop on CPU ones."""
     if a.device.type == "cpu":
         return rg_lru_scan_torch(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rg_lru_scan runs on cuda or cpu, not {a.device}")
     B, T, W = a.shape
     if B * T * W == 0:
         return torch.empty_like(a)

@@ -179,12 +179,14 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                     cache: Optional[dict] = None):
     """Returns (out, new_cache); cache = {"k","v": (B,Smax,KV,dh),
     "len": (B,)}, plus "k_scale","v_scale": (B,Smax,KV) float32 with the
-    int8 KV cache.  ``mode`` is "prefill" or "decode".
+    int8 KV cache.  ``mode`` is "train", "prefill" or "decode".
 
     Prefill writes K/V into the front of the pre-sized ``cache`` in
     place (a ring cache shorter than the prompt takes its trailing rows,
     rolled); decode writes one row per batch element at its own position,
-    in place.  ``new_cache`` holds the same tensors (and a fresh "len")."""
+    in place.  ``new_cache`` holds the same tensors (and a fresh "len").
+    Train attends as prefill does (the flash call, under autograd) and
+    keeps no cache: ``new_cache`` is None."""
     a = cfg.attention
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -199,10 +201,13 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     k = apply_rope(k, pos, a.rope_theta, a.mrope_sections)
 
     kv_int8 = cfg.kv_dtype == "int8"
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         o = flash_attention(q, k, v, causal=True, window=a.window,
                             scale=a.softmax_scale, logit_cap=a.logit_cap,
                             chunk=cfg.attn_chunk)
+    if mode == "train":
+        new_cache = None
+    elif mode == "prefill":
         B, S = k.shape[:2]
         lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
         # what the cache stores: K/V, or their int8 codes and scales
@@ -254,7 +259,7 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         o = decode_attention(q, kd, vd, eff, scale=a.softmax_scale,
                              logit_cap=a.logit_cap)
     else:
-        raise ValueError(f"mode must be prefill|decode, got {mode!r}")
+        raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return out, new_cache
 

@@ -1,9 +1,10 @@
-"""LM-level glue: embedding, forward, and the prefill/decode step builders.
+"""LM-level glue: embedding, forward, loss, and the step builders.
 
 ``batch`` dicts use the reference's keys:
-  prefill: {"tokens": (B,S) int32, "pos": (B,S) or (B,S,3) int32
-            (optional), "vision_embeds": (B,S,D), "vision_mask": (B,S)
-            bool (the vision stub, optional)}
+  train/prefill: {"tokens": (B,S) int32, "labels": (B,S) int32 (train
+            only), "loss_mask": (B,S) (train, optional), "pos": (B,S) or
+            (B,S,3) int32 (optional), "vision_embeds": (B,S,D),
+            "vision_mask": (B,S) bool (the vision stub, optional)}
   decode:  {"tokens": (B,1) int32, "pos": (B,1) or (B,1,3) int32}
 
 (B, S, 3) positions are M-RoPE's (t, h, w) streams; ``attention_apply``
@@ -11,14 +12,21 @@ broadcasts (B, S) ones to all three (text tokens).  The vision stub
 (qwen2-vl) takes precomputed patch embeddings in place of the token
 embeddings where ``vision_mask`` is set; the audio stub (musicgen) has
 no model code: the backbone reads codec token ids as any vocabulary.
+
+Training (``loss_fn``, ``make_train_step``) differentiates with
+autograd, where the reference takes ``jax.value_and_grad``; the flash
+and rg_lru kernels run under it through their ``autograd.Function``s.
+The reference's sharding context and unrolled cost path belong to the
+mesh tooling (ROADMAP A.7) and are not taken here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.interop import tree_flatten, tree_unflatten
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import apply_blocks
 
@@ -58,6 +66,67 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *,
         x = x[:, -1:]
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x), caches, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {"ce", "aux"}): the float32 logsumexp cross-entropy of
+    ``labels`` (mean, or over ``loss_mask``), plus the MoE balance loss."""
+    logits, _, aux = forward(cfg, params, batch, mode="train")
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = lse - ll
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        ce = torch.mean(nll)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def value_and_grad(cfg: ModelConfig, params, batch: Dict[str, Any]):
+    """((loss, parts), grads): ``loss_fn`` and its gradient with respect
+    to every leaf of ``params`` (zeros for a leaf the loss does not
+    reach, as ``jax.grad`` gives), in the leaves' dtypes."""
+    leaves, spec = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, parts = loss_fn(cfg, tree_unflatten(spec, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    parts = {k: v.detach() for k, v in parts.items()}
+    return (loss.detach(), parts), tree_unflatten(spec, grads)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``state`` = {"params", "opt", "step"}; ``optimizer`` is a
+    ``repro_torch.optim.adamw.AdamW``.  The global grad norm is taken in
+    float32, the grads clipped to ``clip_norm`` and cast back to their
+    dtype before the update; the input state is left as it was."""
+
+    def train_step(state, batch):
+        (loss, parts), grads = value_and_grad(cfg, state["params"], batch)
+        g_leaves, spec = tree_flatten(grads)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for g in g_leaves))
+        scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        grads = tree_unflatten(spec, [
+            (g.to(torch.float32) * scale).to(g.dtype) for g in g_leaves])
+        del g_leaves
+        params, opt = optimizer.update(state["params"], grads, state["opt"],
+                                       state["step"])
+        metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
+                   "grad_norm": gnorm}
+        return {"params": params, "opt": opt,
+                "step": state["step"] + 1}, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -16,7 +16,10 @@ Prefill (T > 1) runs the recurrence through
 ``kernels.rg_lru.rg_lru_scan(a, bx, h0)`` (the CUDA kernel on the card, a
 float32 loop on the CPU) where the reference runs an associative scan
 with ``h0`` folded into ``bx[:, 0]``; the two agree to rounding.  Decode
-(T == 1) is the reference's elementwise step.
+(T == 1) is the reference's elementwise step.  Train runs prefill's
+path from a zero state and keeps none; under autograd the scan's
+backward is the kernel again, reversed in time
+(``kernels.rg_lru.RgLruScan``).
 """
 from __future__ import annotations
 
@@ -57,8 +60,9 @@ def rglru_state_defs(cfg: ModelConfig, batch: int) -> dict:
 
 def rglru_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 mode: str, state: Optional[dict] = None):
-    """x: (B,T,D) -> (out, new_state); ``mode`` is "prefill" or "decode".
-    ``new_state`` is {"h": (B,W) f32, "conv": (B,K-1,W)}."""
+    """x: (B,T,D) -> (out, new_state); ``mode`` is "train", "prefill" or
+    "decode".  ``new_state`` is {"h": (B,W) f32, "conv": (B,K-1,W)}, None
+    in train."""
     g = cfg.rglru
     B, T, D = x.shape
     K = g.conv_width
@@ -73,7 +77,7 @@ def rglru_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         xc = torch.einsum("bkw,kw->bw", hist, p["conv"])[:, None] \
             + p["conv_b"]
         new_conv = hist[:, 1:]
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         pad = torch.zeros((B, K - 1, x1.shape[-1]), dtype=x1.dtype,
                           device=x1.device)
         if state is not None:
@@ -83,7 +87,8 @@ def rglru_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         xc = xc + p["conv_b"]
         new_conv = hist[:, -(K - 1):]
     else:
-        raise ValueError(f"mode must be prefill|decode, got {mode!r}")
+        raise ValueError(f"mode must be train|prefill|decode, got "
+                         f"{mode!r}")
 
     r = torch.sigmoid(torch.einsum("btw,wv->btv", xc, p["wa"]).float())
     i = torch.sigmoid(torch.einsum("btw,wv->btv", xc, p["wb"]).float())
@@ -101,4 +106,6 @@ def rglru_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     out = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
     out = torch.einsum("btw,wd->btd", out, p["wo"])
+    if mode == "train":
+        return out, None
     return out, {"h": h[:, -1], "conv": new_conv}

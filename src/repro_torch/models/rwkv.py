@@ -134,7 +134,8 @@ def _wkv_chunk(S0, r, k, v, w, u):
 
 def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                   mode: str, state: Optional[dict], chunk: int = 128):
-    """Returns (out, new_state {"S", "tm_x"})."""
+    """Returns (out, new_state {"S", "tm_x"}); the state is None in
+    train."""
     B, T, D = x.shape
     hs = cfg.rwkv.head_size
     H = D // hs
@@ -176,16 +177,19 @@ def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                          p["ln_b"].reshape(H, hs), cfg.norm_eps)
     y = y.reshape(B, T, D) * g
     out = torch.einsum("btd,de->bte", y, p["wo"])
+    if mode == "train":
+        return out, None
     return out, {"S": S1, "tm_x": x[:, -1]}
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                      mode: str, state: Optional[dict]):
-    """Returns (out, cm_x): the last token is the channel-mix state."""
+    """Returns (out, cm_x): the last token is the channel-mix state
+    (None in train)."""
     sx = _shifted(x, mode, None if state is None else state["cm_x"]) - x
     xk = x + sx * p["cmu_k"]
     xr = x + sx * p["cmu_r"]
     k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, p["ck"])))
     v = torch.einsum("btf,fd->btd", k, p["cv"])
     r = torch.sigmoid(torch.einsum("btd,de->bte", xr, p["cr"]))
-    return r * v, x[:, -1]
+    return r * v, (None if mode == "train" else x[:, -1])

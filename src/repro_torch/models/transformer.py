@@ -18,6 +18,13 @@ updated in place (attention K/V) or written back (the fresh "len" and
 recurrent state).  Every block also returns its auxiliary loss (the MoE
 balance loss, else none), summed over the stack as the reference's
 ``apply_blocks`` does.
+
+Train keeps no cache (every block's new cache is None).  With
+``cfg.remat == "block"`` each unit of ``cfg.remat_span`` pattern groups
+runs under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint`` of its scanned group body: the backward runs the
+unit's forward again, its flash and rg_lru kernels included.  The
+unstacked tail is not rematerialised, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import torch_dtype, tree_flatten, tree_unflatten
@@ -88,7 +96,8 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         o, cm_x = rwkv_mod.rwkv_channel_mix(cfg, p["mix"], h, mode=mode,
                                             state=cache)
-        return x + o, {"mix": tm, "cm_x": cm_x}, aux
+        return x + o, (None if mode == "train" else
+                       {"mix": tm, "cm_x": cm_x}), aux
     if kind == "attn":
         o, new = attention_apply(
             cfg, p["attn"], h, mode=mode, pos=pos,
@@ -104,7 +113,7 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
         o, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
     else:
         o = mlp_apply(cfg, p["ffn"], h)
-    return x + o, {kind: new}, aux
+    return x + o, (None if mode == "train" else {kind: new}), aux
 
 
 # ---------------------------------------------------------------------------
@@ -241,32 +250,55 @@ def _write_into(cache: dict, new: dict) -> None:
 
 def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
                  caches: Optional[dict] = None):
-    """Run every layer: the stacked groups in a Python loop, then the
-    tail.  Returns (x, caches, aux): ``caches`` are the given cache
-    tensors, updated in place (None when none were given); ``aux`` is
-    the float32 sum of the blocks' auxiliary losses."""
+    """Run every layer: the stacked groups in a Python loop (in train
+    under the remat policy of the module note), then the tail.  Returns
+    (x, caches, aux): ``caches`` are the given cache tensors, updated in
+    place (None when none were given); ``aux`` is the float32 sum of the
+    blocks' auxiliary losses, a group's summed first, as the reference's
+    scan sums them."""
     n_groups, n_tail = _group_layout(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(kind, p, x, cache):
-        nonlocal aux_total
+    def block(kind, p, x, cache):
         x, nc, aux = block_apply(cfg, kind, p, x, mode=mode, pos=pos,
                                  cache=cache)
         if cache is not None:
             _write_into(cache, nc)
-        if aux is not None:
-            aux_total = aux_total + aux
-        return x
+        return x, aux
 
     gcaches = caches.get("groups") if caches else None
-    for g in range(n_groups):
-        for i, kind in enumerate(cfg.block_pattern):
-            b = f"b{i}"
-            x = run(kind, _index(params["groups"][b], g), x,
-                    None if gcaches is None else _index(gcaches[b], g))
+
+    def groups(x, g0: int, g1: int):
+        """Pattern groups [g0, g1): (x, their summed aux)."""
+        aux_sp = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(g0, g1):
+            aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i, kind in enumerate(cfg.block_pattern):
+                b = f"b{i}"
+                x, aux = block(kind, _index(params["groups"][b], g), x,
+                               None if gcaches is None
+                               else _index(gcaches[b], g))
+                if aux is not None:
+                    aux_g = aux_g + aux
+            aux_sp = aux_sp + aux_g
+        return x, aux_sp
+
+    remat = mode == "train" and cfg.remat == "block"
+    span = max(1, cfg.remat_span)
+    if n_groups % span:
+        span = 1
+    for g0 in range(0, n_groups, span):
+        if remat:
+            x, aux = checkpoint(groups, x, g0, g0 + span,
+                                use_reentrant=False)
+        else:
+            x, aux = groups(x, g0, g0 + span)
+        aux_total = aux_total + aux
     tcaches = caches.get("tail") if caches else None
     for i in range(n_tail):
         t = f"t{i}"
-        x = run(cfg.block_pattern[i], params["tail"][t], x,
-                None if tcaches is None else tcaches[t])
+        x, aux = block(cfg.block_pattern[i], params["tail"][t], x,
+                       None if tcaches is None else tcaches[t])
+        if aux is not None:
+            aux_total = aux_total + aux
     return x, caches, aux_total

@@ -3,10 +3,10 @@
 Twin of ``repro/runtime/fault.py`` (no jax in either).
 
 On a real multi-host deployment each worker runs a ``Heartbeat`` and the
-coordinator restarts lost workers; here the objects are unit-tested with
-injected failures, and ``fabric.FabricManager`` keeps one
-``StragglerMonitor`` per member (the training loop that drives
-``StepGuard`` comes with ROADMAP A.6):
+coordinator restarts lost workers; here the same objects drive the
+training loop (``launch/train.py``) and are unit-tested with injected
+failures, and ``fabric.FabricManager`` keeps one ``StragglerMonitor``
+per member:
 
 * ``StepGuard``: executes a step with bounded retries; after
   ``max_retries`` it restores the latest checkpoint and replays.

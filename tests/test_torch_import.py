@@ -17,9 +17,10 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks",
              "examples")
 BENCH_MODULES = ("completion_modes", "contention", "host_device_bw",
+                 "e2e_step", "offload_step",
                  "rdma_analogue", "far_memory", "overlap", "install_path",
                  "fabric", "chaos", "serve_slo", "kv_capacity", "run")
-EXAMPLES = ("kernels", "serve_requests")
+EXAMPLES = ("kernels", "serve_requests", "quickstart", "offload_demo")
 
 
 def _port_modules():
@@ -44,7 +45,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.fabric.sharded_path", "repro_torch.runtime",
             "repro_torch.runtime.fault", "repro_torch.obs.validate",
             "repro_torch.serving.admission", "repro_torch.serving.workload",
-            "repro_torch.serving.fleet"} | {
+            "repro_torch.serving.fleet", "repro_torch.launch.train",
+            "repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
+            "repro_torch.core.offload", "repro_torch.runtime.elastic"} | {
         f"repro_torch.benchmarks.{m}" for m in BENCH_MODULES} | {
         f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = ("import sys, importlib\n"
