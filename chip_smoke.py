@@ -50,17 +50,17 @@ and it stops at the first failing phase with a non-zero exit:
    ``scaled_dot_product_attention`` with an explicit boolean mask is
    timed beside it as a yardstick the port never calls;
    then the training route of both model kernels (ROADMAP A.6): the
-   flash kernel's row logsumexp ``lse`` and ``FlashAttention``'s
-   gradients (the kernel forward, the PyTorch backward
-   ``flash_attention_bwd``) against autograd through the float32 plain
-   version on the card, in bf16 at qwen2-0.5b's train shape (8, 128,
-   14/2, 64), recurrentgemma-2b's (8, 128, 10/1, 256, window 2048), a
+   flash kernel's output and ``FlashAttention``'s gradients (the kernel
+   forward, the PyTorch backward ``flash_attention_bwd``) against
+   autograd through the float32 plain version on the card, in bf16 at
+   qwen2-0.5b's train shape (8, 128, 14/2, 64), recurrentgemma-2b's
+   (8, 128, 10/1, 256, window 2048), a
    window shorter than S (2, 300, 8/2, 128, window 64) and grok's 48/8
    x 128 with its cap of 30, within 2e-2, and in float32 at smoke size
    within 1e-4; ``RgLruScan``'s gradients (forward and reversed scan on
    the kernel) against autograd through ``rg_lru_scan_torch`` at (8,
-   128, 2560), (2, 97, 130) with h0 and T = 1; the forward with and
-   without ``lse`` and the backward timed at qwen2-0.5b's train shape;
+   128, 2560), (2, 97, 130) with h0 and T = 1; the forward and the
+   backward timed at qwen2-0.5b's train shape;
 5. ``stream_copy`` phase: holds the kernel byte for byte against its
    input on the reference test's grid and the full Fig-8 grid in
    float32, bfloat16 and int32 (-0.0 and NaN payloads planted), runs the
@@ -157,7 +157,8 @@ and it stops at the first failing phase with a non-zero exit:
    at full width, bf16, seed 0, the synthetic corpus, batch 8 x 128
    tokens, lr 3e-3 (the CLI's defaults), counted: qwen2-0.5b for 20
    steps; qwen2-0.5b for 10 steps with ``--ckpt-every 10`` into a
-   temporary directory under ``build/`` (deleted afterwards), then a
+   temporary directory under ``build/`` (the shard phase restores it,
+   then deletes it), then a
    second run resuming from step 10 for 4 steps (every restored leaf's
    sha256 held to the manifest, the last checkpoint at step 14);
    qwen2-0.5b for 4 steps with ``--offload-optimizer`` (the engine moves
@@ -169,7 +170,27 @@ and it stops at the first failing phase with a non-zero exit:
    the peak device memory.  The allocator grows segments
    (``expandable_segments``) so the full-width optimizer's temporaries
    find room;
-13. bench phase (the same cut of depth; a ``[time]`` line after each
+13. shard phase (ROADMAP A.7): a one-rank NCCL group on a ``FileStore``
+   under ``build/`` and ``launch.mesh.make_dev_mesh(1, 1)``; one train
+   step of ``lm.make_train_step(..., ctx=ShardCtx(mesh, TRAIN_RULES))``
+   on DTensor state and batch placed by ``launch.specs.train_specs``,
+   and one plain step from the same weights (seed 0) and batch (8 x 128
+   tokens), each counted, for full-width qwen2-0.5b (24 layers, bf16,
+   ``remat="block"``) and recurrentgemma-2b cut to ``CUT_LAYERS`` with
+   its widths: |dloss| < 2e-4 and the largest |dparam| over every leaf
+   < 5e-3 (the reference's bars, ``tests/test_distributed.py``), the
+   sharded step's flash and rg_lru launches the plain step's (48 flash
+   for qwen2-0.5b); ``[shard]`` lines print losses, both differences,
+   step ms and launches.  Then ``DevicePrefetcher(sharding=)`` delivers
+   a batch as DTensors with the batcher's bytes, and ``restore(
+   shardings=)`` puts the training phase's saved qwen2-0.5b train state
+   (step 14) on the mesh from the abstract (meta) state, every leaf's
+   sha256 the manifest's; last the
+   C.4 kernel-route check:
+   ``FlashAttention`` in bf16 with q and k at std 60, at qwen2-0.5b's
+   and the hybrid's train shapes, its gradients finite and within 2e-2
+   of the largest of autograd through the float32 plain version;
+14. bench phase (the same cut of depth; a ``[time]`` line after each
    module): ``repro_torch.benchmarks.run --quick`` on the card (the
    paper's channel, contention, completion, RDMA-analogue, Table 1
    offload-step, far-memory, overlap, fabric, chaos, serving-SLO,
@@ -189,7 +210,7 @@ and it stops at the first failing phase with a non-zero exit:
    ``bitexact_bf16`` and ``bitexact_share``.  Speed and policy ratios
    (``ok_replicas``, ``ok_slo``, ``share_admit_uplift``) are printed,
    not held;
-14. reference check: at the smoke size in float32, the logits of the
+15. reference check: at the smoke size in float32, the logits of the
    prefill and of two greedy decode steps after it, of every served
    arch, on the card agree with the CPU's within 1e-4 (the hybrid
    prompt of 40 tokens overruns its window of 32; RWKV's of 256 tokens
@@ -207,8 +228,10 @@ paged serves over every access path, the capacity serves, the fabric,
 chaos, trace, fleet and family serves, the Fig-8 sweep, the bench
 phase's benchmarks and examples) and read just after;
 the ``kernels`` line sums them, and gives the fleet serves' share as
-``fleet_launches`` and the training runs' as ``train_launches`` (flash
-also the train-shape forward, ``lse`` and backward times; a
+``fleet_launches``, the sharded steps' as ``shard_launches`` (a
+``shard_runs`` line holds their numbers) and the training runs' as
+``train_launches`` (flash
+also the train-shape forward and backward times; a
 ``train_runs`` line before it holds each training run's numbers).  Last it prints the card line, the
 ``kernels`` JSON line (all five kernels) and the device JSON line.
 """
@@ -217,7 +240,9 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1751,12 +1776,12 @@ def _grad_err(got, want) -> float:
 
 
 def flash_train_check(B, S, H, KV, dh, dtype, tol, **kw) -> dict:
-    """The kernel's ``lse`` and ``FlashAttention``'s gradients (the
-    kernel forward, then ``flash_attention_bwd`` reading its o and lse)
-    against autograd through the float32 plain version
+    """The kernel's output and ``FlashAttention``'s gradients (the
+    kernel forward, then ``flash_attention_bwd``, which rebuilds P from
+    q and k) against autograd through the float32 plain version
     (``attention_chunked``) on the card, on the same inputs.  Held: o
-    within ``tol`` (abs + rel), lse within ``tol`` abs, dq/dk/dv within
-    ``tol`` of the largest gradient."""
+    within ``tol`` (abs + rel), dq/dk/dv within ``tol`` of the largest
+    gradient."""
     import torch
     from repro_torch.kernels import flash_attention as FA
 
@@ -1766,29 +1791,26 @@ def flash_train_check(B, S, H, KV, dh, dtype, tol, **kw) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(S + dh)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    o, lse = FA._launch(q, k, v, kw.get("causal", True), kw.get("window"),
-                        None, kw.get("logit_cap"), want_lse=True)
+    o = FA._launch(q, k, v, kw.get("causal", True), kw.get("window"),
+                   None, kw.get("logit_cap"))
     qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
-    want_o, want_lse = FA.attention_chunked(qf, kf, vf, return_lse=True,
-                                            **kw)
+    want_o = FA.attention_chunked(qf, kf, vf, **kw)
     want = torch.autograd.grad(want_o, (qf, kf, vf), do.float())
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     got_o = FA.flash_attention(qg, kg, vg, **kw)
     assert got_o.grad_fn is not None, "flash under autograd: no grad_fn"
     got = torch.autograd.grad(got_o, (qg, kg, vg), do)
     torch.cuda.synchronize()
-    want_o, want_lse = want_o.detach(), want_lse.detach()
+    want_o = want_o.detach()
     res = {"o_err": float((o.float() - want_o.float()).abs().max()),
-           "lse_err": float((lse - want_lse.float()).abs().max()),
            "grad_err": max(_grad_err(g, w) for g, w in zip(got, want))}
     print(f"[train-flash] B={B} S={S} H={H} KV={KV} dh={dh} {dtype} {kw} "
-          f"o_err={res['o_err']:.3e} lse_err={res['lse_err']:.3e} "
+          f"o_err={res['o_err']:.3e} "
           f"dqkv_rel_err={res['grad_err']:.3e} (plain float32, autograd)",
           flush=True)
     bad = (o.float() - want_o.float()).abs() > tol + tol * \
         want_o.float().abs()
     assert not bool(bad.any()), res
-    assert res["lse_err"] <= tol, res
     assert res["grad_err"] <= tol, res
     assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
                for g in got), "flash backward: zero or non-finite grads"
@@ -1796,36 +1818,32 @@ def flash_train_check(B, S, H, KV, dh, dtype, tol, **kw) -> dict:
 
 
 def flash_train_timing(B, S, H, KV, dh) -> dict:
-    """bf16 at a train shape: the kernel forward without and with
-    ``lse``, and ``flash_attention_bwd`` (plain PyTorch), device ms."""
+    """bf16 at a train shape: the kernel forward and
+    ``flash_attention_bwd`` (plain PyTorch), device ms."""
     import torch
     from repro_torch.kernels import flash_attention as FA
 
     q, k, v = _qkv(B, S, H, KV, dh, torch.bfloat16, seed=3)
     do = torch.randn_like(q)
-    o, lse = FA._launch(q, k, v, True, None, None, None, want_lse=True)
     pairs = live_pairs(S, True, None)
     elems = B * S * (H + 2 * KV) * dh
     fwd_bytes = 2 * elems + 2 * B * S * H * dh
-    # backward: read q, k, v, o, do and lse, write dq, dk, dv; five
-    # products over the live pairs (S again, dP, dV, dQ, dK)
-    bwd_bytes = 2 * (elems + 2 * B * S * H * dh) + 4 * B * H * S + \
-        2 * elems
+    # backward: read q, k, v and do, write dq, dk, dv; five products
+    # over the live pairs (S again, dP, dV, dQ, dK)
+    bwd_bytes = 2 * (elems + B * S * H * dh) + 2 * elems
     bwd_flops = 10 * B * H * dh * pairs
     t = {"fwd_ms": device_time_ms(lambda: FA._launch(
             q, k, v, True, None, None, None)),
-         "fwd_lse_ms": device_time_ms(lambda: FA._launch(
-             q, k, v, True, None, None, None, want_lse=True)),
          "bwd_ms": device_time_ms(lambda: FA.flash_attention_bwd(
-             q, k, v, o, lse, do), calls=5, repeats=5),
+             q, k, v, do), calls=5, repeats=5),
          "bwd_bound_ms": max(bwd_flops / BF16_FLOPS,
                              bwd_bytes / HBM_BYTES_PER_S) * 1e3,
          "fwd_bound_ms": max(4 * B * H * dh * pairs / BF16_FLOPS,
                              fwd_bytes / HBM_BYTES_PER_S) * 1e3}
     print(f"[train-flash] timed bf16 B={B} S={S} H={H} KV={KV} dh={dh}: "
-          f"forward {t['fwd_ms']:.5f} ms, with lse {t['fwd_lse_ms']:.5f} "
-          f"ms (bound {t['fwd_bound_ms']:.5f}); backward (PyTorch) "
-          f"{t['bwd_ms']:.5f} ms (bound {t['bwd_bound_ms']:.5f})",
+          f"forward {t['fwd_ms']:.5f} ms (bound {t['fwd_bound_ms']:.5f}); "
+          f"backward (PyTorch) {t['bwd_ms']:.5f} ms (bound "
+          f"{t['bwd_bound_ms']:.5f})",
           flush=True)
     return t
 
@@ -1860,7 +1878,7 @@ def rg_lru_train_check(B, T, W, h0: bool) -> float:
 
 
 def train_kernel_checks() -> dict:
-    """Flash (lse + backward) and rg_lru (backward) at the training
+    """Flash (forward + backward) and rg_lru (backward) at the training
     shapes, then the flash timings at qwen2-0.5b's train shape."""
     import torch
     bf = torch.bfloat16
@@ -1875,8 +1893,7 @@ def train_kernel_checks() -> dict:
            rg_lru_train_check(2, 97, 130, True),
            rg_lru_train_check(3, 1, 64, True)]
     t = flash_train_timing(8, 128, 14, 2, 64)
-    t.update(lse_err=max(e["lse_err"] for e in errs[:4]),
-             grad_err=max(e["grad_err"] for e in errs[:4]),
+    t.update(grad_err=max(e["grad_err"] for e in errs[:4]),
              rg_lru_bwd_err=max(lru))
     return t
 
@@ -1996,43 +2013,35 @@ def train_run(label: str, arch: str, argv, steps: int) -> dict:
     return row
 
 
-def train_phases() -> None:
+def train_phases(d: str) -> None:
     """The four full-width runs: qwen2-0.5b plain (20 steps), with a
-    checkpoint at step 10 and a resumed run to step 14, with the
+    checkpoint at step 10 and a resumed run to step 14 in ``d`` (whose
+    step 14 the shard phase restores; ``main`` deletes ``d``), with the
     host-offloaded optimizer (4 steps); recurrentgemma-2b plain (10
     steps)."""
-    import shutil
-    import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
     q = "qwen2-0.5b"
     plain = train_run("plain", q, ["--steps", "20"], 20)
     assert plain["final_loss"] < plain["first_loss"], plain
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    d = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT,
-                                                                "build"))
-    try:
-        RESTORED.clear()
-        first = train_run("ckpt", q, ["--steps", "10", "--ckpt-dir", d,
-                                      "--ckpt-every", "10"], 10)
-        resumed = train_run("resume", q, ["--steps", "4", "--ckpt-dir", d,
-                                          "--ckpt-every", "10"], 4)
-        mgr = CheckpointManager(d, device="cuda")
-        steps = mgr.all_steps()
-        mgr.close()
-        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f"step_{s:010d}",
-                                                      f))
-                         for s in steps[-1:] for f in os.listdir(
-                             os.path.join(d, f"step_{s:010d}")))
-        print(f"[train] resume: restored={RESTORED} (every leaf's digest "
-              f"held to the manifest) checkpoints={steps} "
-              f"bytes_on_disk={ckpt_bytes} loss {first['first_loss']:.4f}"
-              f"->{first['final_loss']:.4f} then "
-              f"{resumed['first_loss']:.4f}->{resumed['final_loss']:.4f}",
-              flush=True)
-        assert RESTORED and RESTORED[0][0] == 10, RESTORED
-        assert steps[-1] == 14, steps
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+    RESTORED.clear()
+    first = train_run("ckpt", q, ["--steps", "10", "--ckpt-dir", d,
+                                  "--ckpt-every", "10"], 10)
+    resumed = train_run("resume", q, ["--steps", "4", "--ckpt-dir", d,
+                                      "--ckpt-every", "10"], 4)
+    mgr = CheckpointManager(d, device="cuda")
+    steps = mgr.all_steps()
+    mgr.close()
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f"step_{s:010d}", f))
+                     for s in steps[-1:] for f in os.listdir(
+                         os.path.join(d, f"step_{s:010d}")))
+    print(f"[train] resume: restored={RESTORED} (every leaf's digest "
+          f"held to the manifest) checkpoints={steps} "
+          f"bytes_on_disk={ckpt_bytes} loss {first['first_loss']:.4f}"
+          f"->{first['final_loss']:.4f} then "
+          f"{resumed['first_loss']:.4f}->{resumed['final_loss']:.4f}",
+          flush=True)
+    assert RESTORED and RESTORED[0][0] == 10, RESTORED
+    assert steps[-1] == 14, steps
     OFFLOADED.clear()
     off = train_run("offload", q, ["--steps", "4", "--offload-optimizer"],
                     4)
@@ -2103,6 +2112,204 @@ def train_reference_check(arch: str, steps: int = 2) -> dict:
     assert loss_err <= 1e-4 and grad_err <= 1e-3, \
         (arch, loss_err, grad_err, param_err)
     return {"loss_err": loss_err, "grad_err": grad_err}
+
+
+# the bars of the sharded step against the plain one: the reference's
+# (tests/test_distributed.py), and the C.4 kernel-route check's
+SHARD_DLOSS, SHARD_DPARAM = 2e-4, 5e-3
+C4_TOL = 2e-2
+SHARD_RUNS = []
+SHARD_LAUNCHES = {}      # launches of the counted sharded steps
+
+
+def _timed(fn):
+    """(fn(), host seconds) around a call that ends in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def shard_step_check(label: str, cfg, mesh, opt) -> dict:
+    """One step of ``lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh,
+    TRAIN_RULES))`` on DTensor state and batch placed by
+    ``train_specs``' shardings, and one plain step from the same weights
+    (seed 0) and batch (8 x 128 tokens), each counted: |dloss| and the
+    largest |dparam| over every leaf within the reference's bars, and
+    the sharded step's flash and rg_lru launches those of the plain
+    step (the kernels ran on the local shards, not the plain version).
+    A second sharded step is timed too (DTensor caches its sharding
+    decisions on the first).  Returns the abstract (meta) state and the
+    shardings."""
+    import torch
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.specs import train_specs
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import lm
+    from repro_torch.sharding import (TRAIN_RULES, ShardCtx,
+                                      distribute_tree, full)
+    B, S = 8, 128
+    state = build_state(cfg, opt, 0, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    cell, _ = train_specs(cfg, ShapeCfg("train", S, B, "train"), mesh, opt)
+    ((plain, pm), plain_s), pl_launch = counted(lambda: _timed(
+        lambda: lm.make_train_step(cfg, opt)(state, batch)))
+    state_d = distribute_tree(state, cell.shardings[0], src_data_rank=None)
+    batch_d = distribute_tree(batch, cell.shardings[1], src_data_rank=None)
+    step = lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh, TRAIN_RULES))
+    ((new, sm), shard_s), sh_launch = counted(lambda: _timed(
+        lambda: step(state_d, batch_d)))
+    for name, n in sh_launch.items():
+        SHARD_LAUNCHES[name] = SHARD_LAUNCHES.get(name, 0) + n
+    _, again_s = _timed(lambda: step(new, batch_d))
+    dloss = abs(float(sm["loss"]) - float(pm["loss"]))
+    dparam = max(float((full(a).float() - b.float()).abs().max())
+                 for a, b in zip(tree_leaves(new["params"]),
+                                 tree_leaves(plain["params"])))
+    kern = ("flash_attention", "rg_lru_scan")
+    row = {"label": label, "arch": cfg.arch_id, "layers": cfg.n_layers,
+           "loss": float(sm["loss"]), "plain_loss": float(pm["loss"]),
+           "dloss": dloss, "dparam": dparam,
+           "grad_norm": float(sm["grad_norm"]),
+           "plain_grad_norm": float(pm["grad_norm"]),
+           "step_ms": shard_s * 1e3, "second_step_ms": again_s * 1e3,
+           "plain_step_ms": plain_s * 1e3,
+           "launches": {k: sh_launch[k] for k in kern},
+           "plain_launches": {k: pl_launch[k] for k in kern},
+           "placements": sorted({str(p) for sh in tree_leaves(
+               cell.shardings[0]) for p in sh[1]})}
+    print(f"[shard] {label} {cfg.arch_id} layers={cfg.n_layers} mesh "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names}: loss "
+          f"{row['loss']:.6f} (plain {row['plain_loss']:.6f}) "
+          f"dloss={dloss:.3e} dparam={dparam:.3e} (bars {SHARD_DLOSS}, "
+          f"{SHARD_DPARAM}) step_ms={row['step_ms']:.1f} (second "
+          f"{row['second_step_ms']:.1f}; plain {row['plain_step_ms']:.1f}) "
+          f"launches={row['launches']} plain={row['plain_launches']} "
+          f"placements={row['placements']}", flush=True)
+    assert dloss < SHARD_DLOSS and dparam < SHARD_DPARAM, row
+    assert row["launches"] == row["plain_launches"], row
+    SHARD_RUNS.append(row)
+    return {"like": cell.abstract[0], "shardings": cell.shardings}
+
+
+def shard_io_check(cfg, mesh, qwen: dict, ckpt_dir: str) -> None:
+    """``DevicePrefetcher(sharding=)`` delivers a batch as DTensors on
+    the card mesh, the batcher's bytes; ``restore(shardings=)`` puts the
+    training phase's saved qwen2-0.5b train state (step 14, 4.94 GB) on
+    the mesh from the abstract (meta) state, each rank's slice read on
+    the host and moved alone, each leaf's sha256 the manifest's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import manager as M
+    from repro_torch.data import pipeline as PP
+    from repro_torch.interop import to_numpy
+    spec = PP.BatchSpec(8, 128)
+    want = PP.PackedBatcher(PP.SyntheticCorpus(cfg.vocab), spec)
+    pre = PP.DevicePrefetcher(PP.PackedBatcher(PP.SyntheticCorpus(
+        cfg.vocab), spec), sharding=qwen["shardings"][1], device="cuda")
+    try:
+        got, w = next(pre), want.next_batch()
+    finally:
+        pre.close()
+    for k, v in w.items():
+        assert isinstance(got[k], DTensor), k
+        assert to_numpy(got[k].full_tensor().cpu()).tobytes() == \
+            v.tobytes(), k
+    print(f"[shard] prefetch: {sorted(got)} as DTensors "
+          f"{[str(p) for p in got['tokens'].placements]} on "
+          f"{got['tokens'].device}, the batcher's bytes", flush=True)
+    mgr = M.CheckpointManager(ckpt_dir, device="cuda")
+    (step, tree), restore_s = _timed(lambda: mgr.restore(
+        qwen["like"], shardings=qwen["shardings"][0]))
+    mgr.close()
+    with open(os.path.join(ckpt_dir, f"step_{step:010d}",
+                           "manifest.json")) as f:
+        digests = {e["name"]: e["sha256"] for e in json.load(f)["leaves"]}
+    pairs = M._flatten_with_path(tree)
+    for path, leaf in pairs:
+        name = M._leaf_name(path)
+        assert isinstance(leaf, DTensor), name
+        got_d = M._digest(M._host_bytes(leaf.full_tensor()))
+        assert got_d == digests[name], (name, got_d, digests[name])
+    assert len(pairs) == len(digests), (len(pairs), len(digests))
+    print(f"[shard] restore(shardings=) onto the meta state: step {step}, "
+          f"{len(pairs)} leaves as DTensors, every sha256 the manifest's; "
+          f"restore {restore_s:.2f}s", flush=True)
+
+
+def c4_kernel_check(B, S, H, KV, dh, **kw) -> float:
+    """ROADMAP C.4 on the kernel route: ``FlashAttention`` on the card in
+    bf16 with q and k at std 60 (scores of 10^3-10^4), its gradients
+    against autograd through the float32 plain version on the same
+    inputs; finite, within ``C4_TOL`` of the largest.  Returns the
+    largest relative error."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(60 + dh)
+    rnd = lambda std, *s: (std * torch.randn(
+        s, generator=gen, device="cuda")).to(torch.bfloat16)
+    q, k = rnd(60.0, B, S, H, dh), rnd(60.0, B, S, KV, dh)
+    v, do = rnd(1.0, B, S, KV, dh), rnd(1.0, B, S, H, dh)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(FA.flash_attention(qg, kg, vg, **kw),
+                              (qg, kg, vg), do)
+    qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(FA.attention_chunked(qf, kf, vf, **kw),
+                               (qf, kf, vf), do.float())
+    err = max(_grad_err(g, w) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"[shard] C.4 kernel route: bf16 B={B} S={S} H={H} KV={KV} "
+          f"dh={dh} {kw} q,k std 60: dqkv rel_err={err:.3e} (bar "
+          f"{C4_TOL}, autograd through the float32 plain version) "
+          f"finite={finite} largest |dq|={float(want[0].abs().max()):.1f}",
+          flush=True)
+    assert finite and err <= C4_TOL, err
+    return err
+
+
+def shard_phases(ckpt_dir: str) -> None:
+    """The sharded train step on a one-rank NCCL group (a ``FileStore``
+    under ``build/``, no network) and ``make_dev_mesh(1, 1)``:
+    qwen2-0.5b at full width (24 layers), recurrentgemma-2b at
+    ``CUT_LAYERS`` depth with its widths, the prefetcher's and the
+    restore's placements (the restore from ``ckpt_dir``, the training
+    phase's checkpoints), then the C.4 kernel-route check."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.optim.adamw import AdamW
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="shard_store_", dir=os.path.join(ROOT,
+                                                                 "build"))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(d, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_dev_mesh(1, 1)
+        opt = AdamW(lr=3e-3, warmup_steps=5, decay_steps=10)
+        qcfg = get_config("qwen2-0.5b")
+        qwen = shard_step_check("full", qcfg, mesh, opt)
+        assert SHARD_RUNS[-1]["launches"]["flash_attention"] == \
+            TRAIN_LAUNCHES["qwen2-0.5b"]["flash_attention"], SHARD_RUNS
+        shard_io_check(qcfg, mesh, qwen, ckpt_dir)
+        del qwen
+        free_card()
+        n = CUT_LAYERS["recurrentgemma-2b"]
+        shard_step_check("cut", dataclasses.replace(
+            get_config("recurrentgemma-2b"), n_layers=n), mesh, opt)
+        free_card()
+        c4_kernel_check(8, 128, 14, 2, 64)
+        c4_kernel_check(8, 128, 10, 1, 256, window=2048)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
 
 
 T0 = time.perf_counter()
@@ -2224,8 +2431,18 @@ def main() -> int:
     lap("fleet phases")
     family_phases()
     lap("family phases")
-    train_phases()
-    lap("training phases")
+    # the training phase's checkpoints (about 10 GB), which the shard
+    # phase restores, are deleted however either phase ends
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_",
+                                dir=os.path.join(ROOT, "build"))
+    try:
+        train_phases(ckpt_dir)
+        lap("training phases")
+        shard_phases(ckpt_dir)
+        lap("shard phases")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     with cut_depth():
         bench_phase()
     lap("bench phase")
@@ -2297,16 +2514,17 @@ def main() -> int:
         # runs made
         k["fleet_launches"] = FLEET_LAUNCHES.get(k["name"], 0)
         k["train_launches"] = TRAIN_LAUNCHES_TOTAL.get(k["name"], 0)
-    # the training route: flash's lse and backward (plain PyTorch), the
-    # reversed rg_lru scan
+        k["shard_launches"] = SHARD_LAUNCHES.get(k["name"], 0)
+    # the training route: flash's forward and backward (plain PyTorch),
+    # the reversed rg_lru scan
     kernels[2].update(
-        train_fwd_ms=train_k["fwd_ms"], train_fwd_lse_ms=train_k["fwd_lse_ms"],
-        train_bwd_ms=train_k["bwd_ms"], train_bwd_bound_ms=train_k[
-            "bwd_bound_ms"], train_lse_err=train_k["lse_err"],
+        train_fwd_ms=train_k["fwd_ms"], train_bwd_ms=train_k["bwd_ms"],
+        train_bwd_bound_ms=train_k["bwd_bound_ms"],
         train_grad_rel_err=train_k["grad_err"],
         train_shape="bf16 (8, 128, 14/2, 64) causal")
     kernels[3].update(train_bwd_rel_err=train_k["rg_lru_bwd_err"])
     print(json.dumps({"train_runs": TRAIN_RUNS}), flush=True)
+    print(json.dumps({"shard_runs": SHARD_RUNS}), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ the roofline summary read from dry-run artifacts.
 Twin of ``benchmarks/e2e_step.py``, with its row names plus
 ``--device``.  Each row is host wall time (median of 3) around one train
 step that ends in a device synchronise, so it holds the card's work.
-The roofline rows read ``experiments/dryrun/single/*.json`` (the mesh
-tooling's artifacts, ROADMAP A.7); without that folder there are none,
+The roofline rows read ``experiments/dryrun/single/*.json`` (the dry
+run's artifacts, ROADMAP A.8); without that folder there are none,
 as in the reference.
 
     python -m repro_torch.benchmarks.e2e_step [--quick] [--device cpu]

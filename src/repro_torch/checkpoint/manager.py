@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.engine import MemoryEngine
 from repro_torch.interop import (dtype_name, torch_dtype, tree_flatten,
                                  tree_unflatten)
+from repro_torch.sharding import from_whole, sharding_leaves
 
 
 def _flatten_with_path(tree, path=()) -> List[Tuple[tuple, Any]]:
@@ -254,12 +255,15 @@ class CheckpointManager:
         """Restore into the structure of ``like``, each leaf on the
         device of ``like``'s leaf.  Verifies digests; raises on
         corruption so the caller's fault handler can fall back to an
-        older step.  ``shardings`` (placement over a mesh) belongs to the
-        mesh tooling, ROADMAP A.7."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) places leaves over a device mesh: "
-                "that is the mesh tooling (ROADMAP A.7)")
+        older step.  ``shardings`` (``(mesh, placements)`` per leaf, as
+        ``repro_torch.sharding.tree_shardings`` gives, or one pair for
+        every leaf) makes each restored leaf a DTensor: every rank reads
+        the whole leaf into host memory and moves only its own slice to
+        the mesh's device (``from_whole``), so no device holds a whole
+        sharded leaf.  With ``shardings``, ``like`` may be abstract (meta
+        tensors, as ``transformer.tree_abstract`` and
+        ``AdamW.init_abstract`` give); without, its leaves' devices are
+        where the leaves go."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -269,8 +273,10 @@ class CheckpointManager:
             manifest = json.load(f)
         by_name = {e["name"]: e for e in manifest["leaves"]}
         pairs = _flatten_with_path(like)
+        shard = [None] * len(pairs) if shardings is None else \
+            sharding_leaves(shardings, tree_flatten(like)[1], len(pairs))
         out = []
-        for path, leaf in pairs:
+        for (path, leaf), sh in zip(pairs, shard):
             name = _leaf_name(path)
             if name not in by_name:
                 raise KeyError(f"leaf {name} missing from checkpoint {step}")
@@ -283,8 +289,15 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch {name}: ckpt "
                                  f"{tuple(e['shape'])} vs model "
                                  f"{tuple(leaf.shape)}")
-            out.append(_from_bytes(raw, e["dtype"], e["shape"],
-                                   leaf.device))
+            if sh is not None:
+                out.append(from_whole(_from_bytes(raw, e["dtype"],
+                                                  e["shape"], "cpu"), *sh))
+            elif leaf.device.type == "meta":
+                raise ValueError(f"{name}: an abstract (meta) like needs "
+                                 f"shardings to say where leaves go")
+            else:
+                out.append(_from_bytes(raw, e["dtype"], e["shape"],
+                                       leaf.device))
         return step, tree_unflatten(tree_flatten(like)[1], out)
 
     def close(self) -> None:

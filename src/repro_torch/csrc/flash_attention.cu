@@ -5,9 +5,7 @@
 //
 //   q: (B, S, H, dh)  k, v: (B, S, KV, dh)  ->  o: (B, S, H, dh)
 //   bf16 or float32 in and out, float32 softmax state and accumulator;
-//   dh in {16, 32, 64, 128, 256}; optionally lse: (B, H, S) float32, the
-//   row logsumexp m + log(l) of the scaled, capped, masked scores, in
-//   natural-log units (what a training backward reads to rebuild P)
+//   dh in {16, 32, 64, 128, 256}
 //
 // Replaces _flash_kernel of src/repro/kernels/flash_attention.py (:33,
 // pallas_call at :121) and computes what it computes: per (q-tile, k-tile)
@@ -120,7 +118,6 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  float* lse;   // (B, H, S) float32, or null: not written
   int S, H, KV;
   int causal;
   int window;   // <= 0: none
@@ -284,10 +281,6 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty + 8 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    // every lane of the row's half-warp holds its m and l
-    if (p.lse != nullptr && tx == 0)
-      p.lse[(static_cast<long long>(b) * p.H + h) * S + row] =
-          m[i] + logf(denom);
     float* orow = ob + static_cast<long long>(row) * p.o_ss;
 #pragma unroll
     for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
@@ -321,7 +314,6 @@ struct TmaSpec {
 struct FaParams {
   bf16* o;
   long long o_sb, o_ss, o_sh;   // elements; the last dim is dense
-  float* lse;                   // (B, H, S) float32, or null
   int S, H, KV, B;
   int causal;
   int window;                   // <= 0: none
@@ -823,11 +815,6 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     for (int half = 0; half < 2; ++half) {
       if (row[half] >= p.S) continue;
       const float denom = fmaxf(l[half], 1e-30f);
-      // m is in natural units (the exponent folds in log2 e), and every
-      // lane of the row's quad holds m and l
-      if (p.lse != nullptr && t == 0)
-        p.lse[(static_cast<long long>(b) * p.H + h) * p.S + row[half]] =
-            m[half] + logf(denom);
       bf16* orow = ob + static_cast<long long>(row[half]) * p.o_ss + 2 * t;
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j)
@@ -910,9 +897,9 @@ int launch_bf16(const TmaSpec* const (&specs)[3], const FaParams& p,
 }  // namespace
 
 // strides: 12 int64, (batch, seq, head) strides in elements of q, k, v, o.
-// window <= 0 and cap <= 0 mean none; lse null means none.
+// window <= 0 and cap <= 0 mean none.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
-                                          const void* v, void* o, void* lse,
+                                          const void* v, void* o,
                                           const long long* strides, int B,
                                           int S, int H, int KV, int dh,
                                           int causal, int window, float scale,
@@ -924,7 +911,6 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
-  p.lse = static_cast<float*>(lse);
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -949,10 +935,9 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
 
 // q, k, v: the wrapper's TmaSpecs and plan: one FaPlan, all in host
 // memory (the launch copies the plan into the kernel's parameters); o:
-// the output, o_strides its (batch, seq, head) strides in elements; lse:
-// (B, H, S) float32 or null.
+// the output, o_strides its (batch, seq, head) strides in elements.
 extern "C" int flash_attention_bf16_launch(
-    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q, const void* k, const void* v, void* o,
     const long long* o_strides, const void* plan, int B, int S, int H,
     int KV, int dh, int causal, int window, float scale, float cap,
     void* stream) {
@@ -962,7 +947,6 @@ extern "C" int flash_attention_bf16_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   FaParams p;
   p.o = static_cast<bf16*>(o);
-  p.lse = static_cast<float*>(lse);
   p.o_sb = o_strides[0];
   p.o_ss = o_strides[1];
   p.o_sh = o_strides[2];

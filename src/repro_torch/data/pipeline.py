@@ -8,8 +8,10 @@ N-1's compute (the paper's H2C path).  The corpora and the packing are
 numpy, as in the reference, so both packages draw byte-equal batches.
 
 Each process loads only its data shard (``shard_id``/``num_shards``).
-Sharded placement of a batch over a device mesh (the reference's
-``sharding=``) belongs to the mesh tooling, ROADMAP A.7, and raises.
+``DevicePrefetcher(sharding=)`` places each staged batch leaf as a
+DTensor over a device mesh, where the reference ``device_put``s it:
+``sharding`` is one ``(mesh, placements)`` for every leaf or a dict of
+them by key (``repro_torch.sharding.tree_shardings``' form).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 
 from repro_torch.core.channels import ChannelPool
 from repro_torch.core.descriptors import gather, spans_for_packing
+from repro_torch.sharding import distribute_tree
 
 
 class SyntheticCorpus:
@@ -128,19 +131,18 @@ class DevicePrefetcher:
     """Double-buffered H2C staging of batches through the ChannelPool.
 
     ``device`` is the pool's (None means ``"cuda"``) when no ``pool`` is
-    handed in; a pool handed in is the caller's to close."""
+    handed in; a pool handed in is the caller's to close.  With
+    ``sharding`` (module note) each leaf staged on the device becomes a
+    DTensor of which every rank keeps its own slice: the producer thread
+    issues no collective."""
 
     def __init__(self, batcher: PackedBatcher, pool: Optional[ChannelPool]
                  = None, depth: int = 2, n_channels: int = 2,
                  sharding=None, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(sharding=...) places batches over a "
-                "device mesh: that is the mesh tooling (ROADMAP A.7)")
         self.batcher = batcher
         self._owns_pool = pool is None
         self.pool = pool or ChannelPool(n_channels, device=device)
-        self.sharding = None
+        self.sharding = sharding
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
@@ -148,7 +150,10 @@ class DevicePrefetcher:
 
     def _stage(self, host_batch):
         trs = {k: self.pool.h2c(v) for k, v in host_batch.items()}
-        return {k: t.wait() for k, t in trs.items()}
+        batch = {k: t.wait() for k, t in trs.items()}
+        if self.sharding is None:
+            return batch
+        return distribute_tree(batch, self.sharding, src_data_rank=None)
 
     def _producer(self) -> None:
         while not self._stop.is_set():

@@ -23,13 +23,22 @@ Nothing falls back from the card to the plain version.
 
 Under autograd (grad mode on and an input that requires grad) the call
 goes through ``FlashAttention``, a ``torch.autograd.Function``: its
-forward is the kernel on the card (asked for the row logsumexp ``lse``
-as well) and ``attention_chunked`` on the CPU, and its backward is
-``flash_attention_bwd`` on both, plain PyTorch in q-chunks that rebuilds
-P from the forward's ``o`` and ``lse`` and never runs the forward again.
+forward is the kernel on the card and ``attention_chunked`` on the CPU,
+and its backward is ``flash_attention_bwd`` on both, plain PyTorch in
+q-chunks that rebuilds each row's scores as that forward built them and
+takes P as their softmax; it never runs the forward again, and holds
+whole rows, so it needs no row logsumexp from the forward.
 The reference has no backward kernel (its training attends through
 ``attention_chunked`` and lets XLA differentiate it), so neither has
 the port.
+
+DTensors (a step sharded over a mesh, ``repro_torch.sharding``) reach
+the kernel as each rank's local shards, through ``local_map``: the
+attention is local along batch and along heads when each rank's block of
+q heads holds whole GQA groups, which holds when the KV heads split
+evenly (``KV % n == 0`` over the mesh dims that shard heads).  Any other
+placement of q is redistributed to ``Replicate`` first, and k and v take
+q's placements.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.sharding import is_dtensor
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -77,27 +87,30 @@ def _combine(acc, o, m, l):
     return o1, m1, l0 * a0 + l * a1
 
 
+def _tiles(S: int, chunk_q: int, chunk_k: int) -> Tuple[int, int]:
+    """``attention_chunked``'s (q rows, keys) of a tile."""
+    cq, ck = min(chunk_q, S), min(chunk_k, S)
+    if S % cq or S % ck:
+        cq = ck = S   # odd lengths (tests/short prompts): one full tile
+    return cq, ck
+
+
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       chunk_q: int = 1024, chunk_k: int = 1024,
                       scale: Optional[float] = None,
-                      logit_cap: Optional[float] = None,
-                      return_lse: bool = False):
+                      logit_cap: Optional[float] = None) -> torch.Tensor:
     """q: (B,S,H,dh); k,v: (B,S,KV,dh) -> (B,S,H,dh). GQA attention.
 
     Every (q-chunk, kv-chunk) tile is computed and masked, as the
     reference's scanned path does; the running output stays in the input
-    dtype between tiles.  With ``return_lse`` it returns ``(o, lse)``:
-    ``lse`` (B, H, S) float32 is each row's ``m + log(l)``, the
-    logsumexp of its scaled, capped, masked scores."""
+    dtype between tiles."""
     B, S, H, dh = q.shape
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
-    cq, ck = min(chunk_q, S), min(chunk_k, S)
-    if S % cq or S % ck:
-        cq = ck = S   # odd lengths (tests/short prompts): one full tile
+    cq, ck = _tiles(S, chunk_q, chunk_k)
     nq, nk = S // cq, S // ck
     dev = q.device
-    outs, lses = [], []
+    outs = []
     for qi in range(nq):
         q0 = qi * cq
         qb = q[:, q0:q0 + cq]
@@ -118,13 +131,9 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             bias = torch.where(m, 0.0, NEG_INF).float()
             acc = _combine(acc, *_attend_tile(qb, kb, vb, bias, scale,
                                               logit_cap))
-        o, mx, l = acc
+        o, _, l = acc
         l = torch.clamp(l, min=1e-30)
         outs.append(o / l[..., None].to(o.dtype))
-        if return_lse:
-            lses.append((mx + torch.log(l)).permute(0, 2, 1))
-    if return_lse:
-        return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
     return torch.cat(outs, dim=1)
 
 
@@ -133,21 +142,33 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None,
                         logit_cap: Optional[float] = None,
-                        chunk: int = 1024):
+                        chunk: int = 1024, chunked_scores: bool = False):
     """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v),
-    given its output ``o``, its row logsumexp ``lse`` (B, H, S) and the
-    output's gradient ``do``.  Float32 inside, the inputs' dtype out.
+    given the output's gradient ``do``.  Float32 inside, the inputs'
+    dtype out.
 
-    Per q-chunk of ``chunk`` rows (memory O(chunk * S) a head):
-    D = rowsum(dO o O), P = exp(s - lse) under the forward's mask,
-    dV += P^T dO, dP = dO V^T, dS = P o (dP - D), through the cap
-    dS (1 - tanh^2(s / cap)), dQ = dS K scale, dK += dS^T Q scale; GQA's
-    dK and dV sum over each KV head's group of query heads."""
+    The scores are rebuilt as the forward built them (ROADMAP C.4): by
+    default in float32 from the inputs, as the kernel's accumulators
+    hold them; with ``chunked_scores`` as ``attention_chunked`` (the CPU
+    forward) does, each (q-chunk, kv-chunk) tile's product in the
+    inputs' dtype, then widened, at that forward's tiles of ``chunk``.
+    P is the softmax of the rebuilt scores, not exp(s - lse) against a
+    row logsumexp kept from the forward: at scores of 10^3-10^4 a bf16 ulp is 8-64, and
+    even the card's float32 tensor-core sums differ from these by a few
+    hundredths, so any mismatch of the two would scale a row's P by
+    e^(the difference).  D is rowsum(P o dP) over that row, not
+    rowsum(dO o O): a bf16 ``o`` would leave its rounding (about |dO||V|
+    2^-8) in dS, which at a nearly one-hot row is all of dS.
+
+    Per q-chunk of ``chunk`` rows (memory O(chunk * S) a head): P under
+    the forward's mask, dV += P^T dO, dP = dO V^T, dS = P o (dP - D),
+    through the cap dS (1 - tanh^2(s / cap)), dQ = dS K scale,
+    dK += dS^T Q scale; GQA's dK and dV sum over each KV head's group of
+    query heads."""
     B, S, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -157,18 +178,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, S, H, dh), dtype=torch.float32, device=dev)
     dk = torch.zeros((B, S, KV, dh), dtype=torch.float32, device=dev)
     dv = torch.zeros((B, S, KV, dh), dtype=torch.float32, device=dev)
-    # D = rowsum(dO o O): (B, S, H) -> (B, KV, G, S)
-    dsum = torch.sum(do.float() * o.float(), dim=-1)
-    dsum = dsum.reshape(B, S, KV, G).permute(0, 2, 3, 1)
-    lse4 = lse.reshape(B, KV, G, S)
     ki = torch.arange(S, device=dev)[None, :]
-    cq = max(1, min(chunk, S))
+    if chunked_scores:
+        cq, ck = _tiles(S, chunk, chunk)
+    else:
+        cq = max(1, min(chunk, S))
     for q0 in range(0, S, cq):
         c = min(cq, S - q0)
         sl = slice(q0, q0 + c)
         qb = q[:, sl].float().reshape(B, c, KV, G, dh)
         dob = do[:, sl].float().reshape(B, c, KV, G, dh)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf) * scale
+        if chunked_scores:
+            qg = q[:, sl].reshape(B, c, KV, G, dh)
+            s = torch.cat([torch.einsum("bqkgd,bskd->bkgqs", qg,
+                                        k[:, k0:k0 + ck]).float()
+                           for k0 in range(0, S, ck)], dim=-1) * scale
+        else:
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf) * scale
         if logit_cap is not None:
             th = torch.tanh(s / logit_cap)
             s = logit_cap * th
@@ -178,10 +204,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             live &= ki <= qi
         if window is not None:
             live &= ki > qi - window
-        p = torch.where(live, torch.exp(s - lse4[..., sl, None]), 0.0)
+        # every row keeps a live key (its own position), so no row is
+        # all -inf
+        p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
         dv += torch.einsum("bkgqs,bqkgd->bskd", p, dob)
         dp = torch.einsum("bqkgd,bskd->bkgqs", dob, vf)
-        ds = p * (dp - dsum[..., sl, None])
+        ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
         if logit_cap is not None:
             ds = ds * (1.0 - th * th)
         dq[:, sl] = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(
@@ -192,28 +220,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` under autograd: the kernel (card) or
-    ``attention_chunked`` (CPU) forward, with its ``lse``, and
-    ``flash_attention_bwd`` backward on both devices."""
+    ``attention_chunked`` (CPU) forward, and ``flash_attention_bwd``
+    backward on both devices, told which forward ran
+    (``chunked_scores``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, logit_cap, chunk):
         if q.device.type == "cpu":
-            o, lse = attention_chunked(
-                q, k, v, causal=causal, window=window, chunk_q=chunk,
-                chunk_k=chunk, scale=scale, logit_cap=logit_cap,
-                return_lse=True)
+            o = attention_chunked(q, k, v, causal=causal, window=window,
+                                  chunk_q=chunk, chunk_k=chunk, scale=scale,
+                                  logit_cap=logit_cap)
         else:
-            o, lse = _launch(q, k, v, causal, window, scale, logit_cap,
-                             want_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+            o = _launch(q, k, v, causal, window, scale, logit_cap)
+        ctx.save_for_backward(q, k, v)
+        # the backward rebuilds the scores as this forward built them
         ctx.opts = dict(causal=causal, window=window, scale=scale,
-                        logit_cap=logit_cap, chunk=chunk)
+                        logit_cap=logit_cap, chunk=chunk,
+                        chunked_scores=q.device.type == "cpu")
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.opts)
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -324,12 +353,12 @@ def _kernels() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_f32_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, vp]
         lib.flash_attention_f32_launch.restype = i32
         spec = ctypes.POINTER(TmaSpec)
         lib.flash_attention_bf16_launch.argtypes = [
-            spec, spec, spec, vp, vp, vp, ctypes.POINTER(FaPlan), i32, i32,
+            spec, spec, spec, vp, vp, ctypes.POINTER(FaPlan), i32, i32,
             i32, i32, i32, i32, i32, f32, f32, vp]
         lib.flash_attention_bf16_launch.restype = i32
         lib._typed = True
@@ -374,6 +403,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk; the kernel has its own tiles.  With grad mode on and an input
     that requires grad, the call is ``FlashAttention``'s."""
     _check(q, k, v)
+    if is_dtensor(q):
+        return _on_local_shards(q, k, v, causal=causal, window=window,
+                                scale=scale, logit_cap=logit_cap,
+                                chunk=chunk)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -385,14 +418,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_chunked(q, k, v, causal=causal, window=window,
                                  chunk_q=chunk, chunk_k=chunk, scale=scale,
                                  logit_cap=logit_cap)
-    return _launch(q, k, v, causal, window, scale, logit_cap)[0]
+    return _launch(q, k, v, causal, window, scale, logit_cap)
 
 
-def _launch(q, k, v, causal, window, scale, logit_cap,
-            want_lse: bool = False):
-    """The kernel on CUDA tensors: (o, lse), ``lse`` (B, H, S) float32
-    when ``want_lse`` (the serve path asks for none, and the kernel then
-    writes nothing extra), else None."""
+def _on_local_shards(q, k, v, **opts):
+    """``flash_attention`` of DTensors, run on each rank's shards (module
+    note): q's Shard(0) (batch) kept, its Shard(2) (heads) kept while
+    the KV heads split evenly, every other placement replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, heads = q.device_mesh, 1
+    keep = []
+    for j, p in enumerate(q.placements):
+        n = mesh.size(j)
+        if p == Shard(2) and k.shape[2] % (heads * n) == 0:
+            heads *= n
+        elif p != Shard(0):
+            p = Replicate()
+        keep.append(p)
+    return local_map(
+        lambda a, b, c: flash_attention(a, b, c, **opts),
+        out_placements=keep, in_placements=(keep, keep, keep),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _launch(q, k, v, causal, window, scale, logit_cap) -> torch.Tensor:
+    """The kernel on CUDA tensors."""
     B, S, H, dh = q.shape
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention takes bf16 or float32, not "
@@ -405,17 +456,14 @@ def _launch(q, k, v, causal, window, scale, logit_cap,
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
-        if want_lse else None
     if out.numel() == 0:
-        return out, lse
+        return out
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_strides(t, name)
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     KV = k.shape[2]
     win = 0 if window is None else window
     cap = 0.0 if logit_cap is None else float(logit_cap)
-    lse_ptr = None if lse is None else lse.data_ptr()
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     if q.dtype == torch.bfloat16:
         specs = [tensor_map_spec(t, rows)
@@ -424,19 +472,19 @@ def _launch(q, k, v, causal, window, scale, logit_cap,
         for pl in launch_plans(S, causal, window):
             build.check(_kernels().flash_attention_bf16_launch(
                 *(ctypes.byref(sp) for sp in specs), out.data_ptr(),
-                lse_ptr, ctypes.cast(o_strides, ctypes.c_void_p),
-                ctypes.byref(pl), B, S, H, KV, dh, int(causal), win,
-                float(scale), cap, stream), "flash_attention")
+                ctypes.cast(o_strides, ctypes.c_void_p), ctypes.byref(pl),
+                B, S, H, KV, dh, int(causal), win, float(scale), cap,
+                stream), "flash_attention")
             flash_attention.launches += 1
-        return out, lse
+        return out
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     table = (ctypes.c_longlong * 12)(*strides)
     build.check(_kernels().flash_attention_f32_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.cast(table, ctypes.c_void_p), B, S, H, KV, dh,
         int(causal), win, float(scale), cap, stream), "flash_attention")
     flash_attention.launches += 1
-    return out, lse
+    return out
 
 
 flash_attention.launches = 0

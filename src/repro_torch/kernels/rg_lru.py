@@ -21,6 +21,12 @@ is 0), so ``g`` is ``rg_lru_scan`` over the flipped
 the same kernel, one launch); then ``db = g``, ``da_t = g_t h_{t-1}``
 (``h_{-1}`` is ``h0`` or 0) and ``dh0 = a_0 g_0``.
 
+DTensors (a step sharded over a mesh, ``repro_torch.sharding``) reach
+the kernel as each rank's local shards, through ``local_map``: the
+recurrence is local along batch and along the width, so ``a``'s Shard(0)
+and Shard(2) are kept (``h0`` takes Shard(0) and Shard(1) to match), and
+any other placement, a split of time included, is replicated first.
+
 ``plan`` is the kernel's launch rule (channels per CTA, time steps per
 stage, ring depth, TMA or cp.async route) and ``tensor_map`` the TMA
 geometry it implies; the source note of ``csrc/rg_lru.cu`` explains both.
@@ -34,6 +40,7 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.kernels import build
+from repro_torch.sharding import is_dtensor
 
 MAX_SMEM = 232448        # dynamic shared memory one CTA may use
 TILES = (16, 32)         # channels of a CTA
@@ -170,12 +177,30 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """a, b: (B, T, W) float32; h0: (B, W) float32 or None -> h (B, T, W)."""
     _check(a, b, h0)
+    if is_dtensor(a):
+        return _on_local_shards(a, b, h0)
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rg_lru_scan runs on cuda or cpu, not {a.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
         return RgLruScan.apply(a, b, h0)
     return _scan(a, b, h0)
+
+
+def _on_local_shards(a, b, h0):
+    """``rg_lru_scan`` of DTensors, run on each rank's shards (module
+    note)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    keep = [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in a.placements]
+    args, pls = (a, b), (keep, keep)
+    if h0 is not None:
+        args += (h0,)
+        pls += ([Shard(1) if p == Shard(2) else p for p in keep],)
+    return local_map(rg_lru_scan, out_placements=keep, in_placements=pls,
+                     device_mesh=a.device_mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def _scan(a: torch.Tensor, b: torch.Tensor,

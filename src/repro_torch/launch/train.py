@@ -14,8 +14,10 @@ runs on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen2-0.5b --smoke --steps 30 --device cpu
 
-A single process: the batch shard is 0 of 1 (data parallelism over a
-mesh is ROADMAP A.7).
+Each process loads its shard of the data: ``shard_id`` and
+``num_shards`` are its rank and the world size of the process group
+when one is initialised (the reference's ``jax.process_index()`` and
+``process_count()``), else 0 of 1.
 """
 from __future__ import annotations
 
@@ -36,6 +38,15 @@ from repro_torch.models import lm
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.fault import StepGuard, StragglerMonitor
+
+
+def data_shard() -> dict:
+    """This process's ``shard_id`` and ``num_shards`` (module note)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return {"shard_id": dist.get_rank(),
+                "num_shards": dist.get_world_size()}
+    return {"shard_id": 0, "num_shards": 1}
 
 
 def build_state(cfg, opt, seed: int = 0, device="cuda"):
@@ -77,7 +88,8 @@ def main(argv=None) -> dict:
                 decay_steps=max(10, args.steps))
 
     corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
-    batcher = PackedBatcher(corpus, BatchSpec(args.batch, args.seq))
+    batcher = PackedBatcher(corpus, BatchSpec(args.batch, args.seq),
+                            **data_shard())
     prefetch = DevicePrefetcher(batcher, depth=2, n_channels=2,
                                 device=device)
 

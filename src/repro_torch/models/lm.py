@@ -16,8 +16,14 @@ no model code: the backbone reads codec token ids as any vocabulary.
 Training (``loss_fn``, ``make_train_step``) differentiates with
 autograd, where the reference takes ``jax.value_and_grad``; the flash
 and rg_lru kernels run under it through their ``autograd.Function``s.
-The reference's sharding context and unrolled cost path belong to the
-mesh tooling (ROADMAP A.7) and are not taken here.
+
+``ctx`` is a ``repro_torch.sharding.ShardCtx``, taken where the
+reference takes it: with one, params and batch are DTensors over its
+mesh (``launch/specs.py`` places them), the constraints below
+redistribute the activations as the reference's pin them, and the
+kernels run on each rank's local shards.  Without one, every
+``constrain`` is a no-op.  The reference's unrolled cost path belongs
+to the dry run (ROADMAP A.8) and is not taken here.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import tree_flatten, tree_unflatten
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import apply_blocks
+from repro_torch.sharding import (as_placed, constrain, full, placed_as,
+                                  scope)
 
 
 def embed(cfg: ModelConfig, params, batch: Dict[str, Any]) -> torch.Tensor:
@@ -44,8 +52,10 @@ def positions(cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
         return batch["pos"]
     B, S = batch["tokens"].shape
     # (B, S): ``attention_apply`` broadcasts it to M-RoPE's three streams
-    return torch.arange(S, dtype=torch.int32,
-                        device=batch["tokens"].device)[None].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=batch["tokens"].device)[None].expand(B, S)
+    # a DTensor under a mesh, so that RoPE's backward mixes no plain tensor
+    return placed_as(pos, batch["tokens"])
 
 
 def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -54,102 +64,125 @@ def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *,
-            mode: str, caches=None, last_token_only: bool = False):
+            mode: str, caches=None, ctx=None,
+            last_token_only: bool = False):
     """Returns (logits, caches, aux): ``aux`` is the float32 sum of the
     blocks' auxiliary losses (the MoE balance loss), as the reference's
     third value."""
-    x = embed(cfg, params, batch)
-    x, caches, aux = apply_blocks(cfg, params, x, mode=mode,
-                                  pos=positions(cfg, batch), caches=caches)
-    if last_token_only:
-        # prefill only needs next-token logits: skip the (B,S,V) unembed
-        x = x[:, -1:]
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return unembed(cfg, params, x), caches, aux
+    with scope(ctx):
+        x = embed(cfg, params, batch)
+        x = constrain(x, ("batch", None, None), ctx)
+        x, caches, aux = apply_blocks(cfg, params, x, mode=mode,
+                                      pos=positions(cfg, batch),
+                                      caches=caches, ctx=ctx)
+        if last_token_only:
+            # prefill only needs next-token logits: skip the (B,S,V)
+            # unembed
+            x = x[:, -1:]
+        x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        logits = constrain(unembed(cfg, params, x),
+                           ("batch", None, "vocab"), ctx)
+    return logits, caches, aux
 
 
-def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any]
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *, ctx=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {"ce", "aux"}): the float32 logsumexp cross-entropy of
     ``labels`` (mean, or over ``loss_mask``), plus the MoE balance loss."""
-    logits, _, aux = forward(cfg, params, batch, mode="train")
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-    nll = lse - ll
-    mask = batch.get("loss_mask")
-    if mask is not None:
-        mask = mask.to(torch.float32)
-        ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    else:
-        ce = torch.mean(nll)
-    return ce + aux, {"ce": ce, "aux": aux}
+    with scope(ctx):
+        logits, _, aux = forward(cfg, params, batch, mode="train", ctx=ctx)
+        logits = logits.to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, batch["labels"].long()[..., None])
+        # on vocab-sharded logits DTensor's gather leaves a masked partial
+        # sum, which it cannot reduce once the index drops the last dim:
+        # reduce it first
+        ll = constrain(ll, ("batch", None, None), ctx)[..., 0]
+        nll = lse - ll
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.to(torch.float32)
+            ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask),
+                                                     min=1.0)
+        else:
+            ce = torch.mean(nll)
+        return ce + aux, {"ce": ce, "aux": aux}
 
 
-def value_and_grad(cfg: ModelConfig, params, batch: Dict[str, Any]):
+def value_and_grad(cfg: ModelConfig, params, batch: Dict[str, Any], *,
+                   ctx=None):
     """((loss, parts), grads): ``loss_fn`` and its gradient with respect
     to every leaf of ``params`` (zeros for a leaf the loss does not
-    reach, as ``jax.grad`` gives), in the leaves' dtypes."""
+    reach, as ``jax.grad`` gives), in the leaves' dtypes and, under a
+    ``ctx``, their placements."""
     leaves, spec = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, parts = loss_fn(cfg, tree_unflatten(spec, leaves), batch)
+        loss, parts = loss_fn(cfg, tree_unflatten(spec, leaves), batch,
+                              ctx=ctx)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else as_placed(g, p)
              for p, g in zip(leaves, grads)]
     parts = {k: v.detach() for k, v in parts.items()}
     return (loss.detach(), parts), tree_unflatten(spec, grads)
 
 
-def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0):
+def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0,
+                    ctx=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``state`` = {"params", "opt", "step"}; ``optimizer`` is a
     ``repro_torch.optim.adamw.AdamW``.  The global grad norm is taken in
     float32, the grads clipped to ``clip_norm`` and cast back to their
-    dtype before the update; the input state is left as it was."""
+    dtype before the update; the input state is left as it was.  Under a
+    ``ctx`` the state and batch are DTensors, the norm sums every
+    shard's squares over the mesh, and the metrics are plain tensors."""
 
     def train_step(state, batch):
-        (loss, parts), grads = value_and_grad(cfg, state["params"], batch)
+        (loss, parts), grads = value_and_grad(cfg, state["params"], batch,
+                                              ctx=ctx)
         g_leaves, spec = tree_flatten(grads)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in g_leaves))
+        gnorm = torch.sqrt(sum(
+            full(torch.sum(torch.square(g.to(torch.float32))))
+            for g in g_leaves))
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         grads = tree_unflatten(spec, [
             (g.to(torch.float32) * scale).to(g.dtype) for g in g_leaves])
         del g_leaves
-        params, opt = optimizer.update(state["params"], grads, state["opt"],
-                                       state["step"])
-        metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
-                   "grad_norm": gnorm}
+        with scope(ctx):
+            params, opt = optimizer.update(state["params"], grads,
+                                           state["opt"], state["step"])
+        metrics = {"loss": full(loss), "ce": full(parts["ce"]),
+                   "aux": full(parts["aux"]), "grad_norm": gnorm}
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, metrics
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, *, ctx=None):
     """prefill(params, batch, caches0) -> (caches, last_token_logits);
     ``caches0`` is filled in place."""
 
     @torch.no_grad()
     def prefill(params, batch, caches0):
         logits, caches, _ = forward(cfg, params, batch, mode="prefill",
-                                    caches=caches0, last_token_only=True)
+                                    caches=caches0, ctx=ctx,
+                                    last_token_only=True)
         return caches, logits[:, -1]
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, ctx=None):
     """decode(params, batch, caches) -> (caches, logits (B,V));
     ``caches`` are updated in place."""
 
     @torch.no_grad()
     def decode(params, batch, caches):
         logits, caches, _ = forward(cfg, params, batch, mode="decode",
-                                    caches=caches)
+                                    caches=caches, ctx=ctx)
         return caches, logits[:, -1]
 
     return decode

@@ -1,7 +1,9 @@
 """Mixture-of-Experts FFN with two dispatch modes.
 
-Twin of ``repro/models/moe.py`` without its sharding constraints (the
-mesh is a later slice):
+Twin of ``repro/models/moe.py``, with its sharding constraints (``ctx``,
+a ``repro_torch.sharding.ShardCtx``) where the reference pins them: the
+grouped mode's dispatch buffers and output on ("batch", ...); the global
+mode takes ``ctx`` and pins nothing, as in the reference.
 
 * ``global`` (the default): the flat top-k assignments of all N tokens
   are sorted by expert id (a stable sort) and written into an (E, C, D)
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef, act_fn
+from repro_torch.sharding import constrain, on_whole_values
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -96,7 +99,7 @@ def _experts(cfg, p, eb):
     return torch.matmul(act_fn(cfg.act)(g) * u, p["we2"])
 
 
-def moe_apply_global(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def moe_apply_global(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx=None):
     """Global-sort dispatch (see the module note).  Returns (out, aux)."""
     m = cfg.moe
     B, S, D = x.shape
@@ -142,7 +145,8 @@ def moe_apply_global(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return out.reshape(B, S, D), aux
 
 
-def moe_apply_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def moe_apply_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      ctx=None):
     """Row-local dispatch: routing, sort, rank and capacity per batch
     row, dispatch and combine as gathers.  Returns (out, aux)."""
     m = cfg.moe
@@ -165,8 +169,10 @@ def moe_apply_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor):
     order = torch.argsort(flat_e, dim=1, stable=True)     # per-row sort
     e_sorted = torch.gather(flat_e, 1, order)
     tok_sorted = torch.gather(flat_tok, 1, order)
-    starts = torch.searchsorted(
-        e_sorted, torch.arange(E, device=dev)[None].expand(B, E).contiguous())
+    # searchsorted has no DTensor strategy: on the whole (B, NK) ids
+    starts = on_whole_values(lambda e: torch.searchsorted(
+        e, torch.arange(E, device=dev)[None].expand(B, E).contiguous()),
+        e_sorted)
     seg_end = torch.cat([starts[:, 1:],
                          torch.full((B, 1), NK, dtype=starts.dtype,
                                     device=dev)], dim=1)
@@ -179,7 +185,8 @@ def moe_apply_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor):
     gtok = torch.gather(tok_sorted, 1, posc)                # (B, EC)
     eb = torch.gather(x, 1, gtok[..., None].expand(B, EC, D))
     eb = eb.reshape(B, E, C, D) * valid[..., None].to(x.dtype)
-    eo = _experts(cfg, p, eb)
+    eb = constrain(eb, ("batch", None, None, None), ctx)
+    eo = constrain(_experts(cfg, p, eb), ("batch", None, None, None), ctx)
 
     # combine (gather): invert the permutation, slot arithmetic
     inv = torch.argsort(order, dim=1)                      # (B, NK)
@@ -193,7 +200,8 @@ def moe_apply_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor):
                            .expand(B, NK, D))
     contrib = contrib * flat_w[..., None]
     contrib = torch.where((rank < C)[..., None], contrib, 0)
-    out = contrib.reshape(B, S, K, D).sum(dim=2)
+    out = constrain(contrib.reshape(B, S, K, D).sum(dim=2),
+                    ("batch", None, None), ctx)
 
     if m.d_shared:
         out = out + _shared_expert(cfg, p,
@@ -201,7 +209,10 @@ def moe_apply_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return out, aux
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx=None):
     if cfg.moe_dispatch == "grouped":
-        return moe_apply_grouped(cfg, p, x)
-    return moe_apply_global(cfg, p, x)
+        return moe_apply_grouped(cfg, p, x, ctx)
+    # the global sort and scatter cross the batch shards and have no
+    # DTensor strategy: each rank dispatches the whole batch
+    return on_whole_values(lambda p, x: moe_apply_global(cfg, p, x, ctx),
+                           p, x)

@@ -25,6 +25,13 @@ runs under ``torch.utils.checkpoint`` (non-reentrant), the reference's
 ``jax.checkpoint`` of its scanned group body: the backward runs the
 unit's forward again, its flash and rg_lru kernels included.  The
 unstacked tail is not rematerialised, as in the reference.
+
+``ctx`` (a ``repro_torch.sharding.ShardCtx``) is taken where the
+reference takes it: after each block of a pattern group the residual
+stream is pinned to ("batch", None, None), and the MoE FFN pins its
+dispatch buffers.  ``tree_abstract`` and ``tree_logical`` are the
+abstract trees of the mesh tooling: meta-device tensors of each def's
+shape and dtype, and each def's logical axes.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch.models.layers import (ParamDef, attention_apply,
                                        rms_norm)
 from repro_torch.models.rglru import (rglru_apply, rglru_defs,
                                       rglru_state_defs)
+from repro_torch.sharding import constrain, on_whole_values, scope
 
 
 def _map_defs(fn, defs):
@@ -83,15 +91,17 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
-                cache=None):
+                cache=None, ctx=None):
     """One block of ``kind``. Returns (x, new_cache, aux); ``aux`` is
     the MoE balance loss (a float32 scalar) or None."""
     aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rwkv":
-        o, tm = rwkv_mod.rwkv_time_mix(
-            cfg, p["mix"], h, mode=mode,
-            state=None if cache is None else cache["mix"])
+        # its head split and chunked WKV have no DTensor strategy
+        o, tm = on_whole_values(
+            lambda pm, h, st: rwkv_mod.rwkv_time_mix(cfg, pm, h, mode=mode,
+                                                     state=st),
+            p["mix"], h, None if cache is None else cache["mix"])
         x = x + o
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         o, cm_x = rwkv_mod.rwkv_channel_mix(cfg, p["mix"], h, mode=mode,
@@ -110,7 +120,7 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "attn" and cfg.moe is not None:
-        o, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
+        o, aux = moe_mod.moe_apply(cfg, p["ffn"], h, ctx=ctx)
     else:
         o = mlp_apply(cfg, p["ffn"], h)
     return x + o, (None if mode == "train" else {kind: new}), aux
@@ -218,6 +228,19 @@ def tree_init(defs, cfg: ModelConfig, seed: int, device) -> Any:
                                  for d in leaves])
 
 
+def tree_abstract(defs, cfg: ModelConfig) -> Any:
+    """Each def as a tensor of its shape and dtype on the meta device:
+    no storage is allocated."""
+    return _map_defs(lambda d: torch.empty(
+        d.shape, dtype=torch_dtype(d.dtype or cfg.dtype), device="meta"),
+        defs)
+
+
+def tree_logical(defs) -> Any:
+    """Each def's logical axes."""
+    return _map_defs(lambda d: d.logical, defs)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Zeros, as the reference's ``init_cache`` (the int8 KV cache's
     scales too, though their defs say ``"ones"``)."""
@@ -249,7 +272,7 @@ def _write_into(cache: dict, new: dict) -> None:
 
 
 def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
-                 caches: Optional[dict] = None):
+                 caches: Optional[dict] = None, ctx=None):
     """Run every layer: the stacked groups in a Python loop (in train
     under the remat policy of the module note), then the tail.  Returns
     (x, caches, aux): ``caches`` are the given cache tensors, updated in
@@ -261,7 +284,7 @@ def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
 
     def block(kind, p, x, cache):
         x, nc, aux = block_apply(cfg, kind, p, x, mode=mode, pos=pos,
-                                 cache=cache)
+                                 cache=cache, ctx=ctx)
         if cache is not None:
             _write_into(cache, nc)
         return x, aux
@@ -269,18 +292,25 @@ def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
     gcaches = caches.get("groups") if caches else None
 
     def groups(x, g0: int, g1: int):
-        """Pattern groups [g0, g1): (x, their summed aux)."""
+        """Pattern groups [g0, g1): (x, their summed aux), in the
+        sharding scope, which remat's recompute in the backward enters
+        again."""
         aux_sp = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g in range(g0, g1):
-            aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
-            for i, kind in enumerate(cfg.block_pattern):
-                b = f"b{i}"
-                x, aux = block(kind, _index(params["groups"][b], g), x,
-                               None if gcaches is None
-                               else _index(gcaches[b], g))
-                if aux is not None:
-                    aux_g = aux_g + aux
-            aux_sp = aux_sp + aux_g
+        with scope(ctx):
+            for g in range(g0, g1):
+                aux_g = torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
+                for i, kind in enumerate(cfg.block_pattern):
+                    b = f"b{i}"
+                    x, aux = block(kind, _index(params["groups"][b], g), x,
+                                   None if gcaches is None
+                                   else _index(gcaches[b], g))
+                    # pin activations to (batch-sharded, replicated,
+                    # replicated), as the reference's group body does
+                    x = constrain(x, ("batch", None, None), ctx)
+                    if aux is not None:
+                        aux_g = aux_g + aux
+                aux_sp = aux_sp + aux_g
         return x, aux_sp
 
     remat = mode == "train" and cfg.remat == "block"

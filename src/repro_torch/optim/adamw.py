@@ -59,6 +59,18 @@ class AdamW:
                 lambda p: p.detach().to(torch.float32, copy=True), params)
         return state
 
+    def init_abstract(self, abstract_params: Any) -> Any:
+        """``init``'s state tree as meta-device tensors of each leaf's
+        shape and dtype: nothing is allocated."""
+        sdt = torch_dtype(self.state_dtype)
+        meta = lambda dt: lambda p: torch.empty(p.shape, dtype=dt,
+                                                device="meta")
+        state = {"m": tree_map(meta(sdt), abstract_params),
+                 "v": tree_map(meta(sdt), abstract_params)}
+        if self.master_weights:
+            state["master"] = tree_map(meta(torch.float32), abstract_params)
+        return state
+
     def update(self, params: Any, grads: Any, state: Any,
                step: torch.Tensor):
         """(new_params, new_state) for one step at ``step`` (int32, the

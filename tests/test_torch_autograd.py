@@ -1,8 +1,8 @@
 """The port's kernels under autograd against ``jax.grad`` of the
-reference's plain ops: ``FlashAttention`` (the forward with its row
-logsumexp, the PyTorch backward ``flash_attention_bwd``) against the
-reference model's ``attention_chunked``, and ``RgLruScan`` (the
-reversed scan) against ``_scan_recurrence``.  On the CPU the wrappers'
+reference's plain ops: ``FlashAttention`` (the forward, the PyTorch
+backward ``flash_attention_bwd``) against the reference model's
+``attention_chunked``, and ``RgLruScan`` (the reversed scan) against
+``_scan_recurrence``.  On the CPU the wrappers'
 forwards are their plain versions, and the backwards are the code that
 runs on the card.  Float32 on both sides, 2e-5 per op."""
 import jax
@@ -69,35 +69,24 @@ def test_flash_grads_match_jax_grad_of_reference(case):
 
 @pytest.mark.parametrize("case", FLASH_CASES[:6],
                          ids=lambda c: "-".join(map(str, c[:6])))
-def test_lse_is_the_row_logsumexp_of_the_masked_scores(case):
-    """``attention_chunked(return_lse=True)``'s lse (B, H, S) is the
-    logsumexp of each row's scaled, capped, masked scores, computed
-    densely with jax; its output is the plain output."""
+def test_flash_autograd_output_matches_reference(case):
+    """``FlashAttention``'s forward (the output under autograd, whose
+    node the backward hangs on) equals the reference's
+    ``attention_chunked`` at the same chunk."""
     B, S, H, KV, dh, chunk, opts = case
     q, k, v, _ = _flash_inputs(B, S, H, KV, dh, seed=1)
-    G = H // KV
-    kr = np.repeat(k, G, axis=2)
-    s = jnp.einsum("bqhd,bkhd->bhqk", q, kr) / np.sqrt(dh)
-    if opts.get("logit_cap"):
-        cap = opts["logit_cap"]
-        s = cap * jnp.tanh(s / cap)
-    i = np.arange(S)
-    live = i[None, :] <= i[:, None]
-    if opts.get("window"):
-        live &= i[None, :] > i[:, None] - opts["window"]
-    want = jax.nn.logsumexp(jnp.where(live, s, -jnp.inf), axis=-1)
-    o, lse = FA.attention_chunked(*(torch.from_numpy(x) for x in (q, k, v)),
-                                  chunk_q=chunk, chunk_k=chunk,
-                                  return_lse=True, **opts)
-    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
-    _close(lse, want)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = FA.flash_attention(qt, kt, vt, chunk=chunk, **opts)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    assert o.shape == (B, S, H, dh) and o.dtype == torch.float32
     _close(o, L.attention_chunked(q, k, v, chunk_q=chunk, chunk_k=chunk,
                                   **opts))
 
 
 def test_flash_backward_reads_o_and_lse_not_the_forward(monkeypatch):
-    """The backward rebuilds P from the saved o and lse: with the plain
-    forward made to raise after the forward, the gradients still come."""
+    """The backward reads only the saved q, k, v and ``do``: it rebuilds
+    P itself, and with the plain forward made to raise after the
+    forward, the gradients still come."""
     q, k, v, w = _flash_inputs(1, 16, 4, 2, 16, seed=2)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     o = FA.flash_attention(qt, kt, vt)
@@ -128,14 +117,78 @@ def test_flash_bwd_in_q_chunks_equals_one_chunk():
     """``flash_attention_bwd``'s q-chunking changes no value."""
     q, k, v, do = (torch.from_numpy(x) for x in _flash_inputs(
         2, 37, 6, 2, 16, seed=4))
-    o, lse = FA.attention_chunked(q, k, v, window=11, logit_cap=4.0,
-                                  return_lse=True)
-    one = FA.flash_attention_bwd(q, k, v, o, lse, do, window=11,
+    one = FA.flash_attention_bwd(q, k, v, do, window=11,
                                  logit_cap=4.0, chunk=1024)
-    many = FA.flash_attention_bwd(q, k, v, o, lse, do, window=11,
+    many = FA.flash_attention_bwd(q, k, v, do, window=11,
                                   logit_cap=4.0, chunk=5)
     for a, b in zip(one, many):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+# bf16 at large scores (ROADMAP C.4): q and k at std 60 put the scores at
+# 10^3-10^4, where a bf16 ulp is 8-64, so the backward must rebuild them as
+# the CPU forward rounded them; held to 2e-2 of each gradient's largest
+# entry (bf16's own rounding of dS, dP and P in autograd's graph)
+BF16_TOL = 2e-2
+BF16_CASES = [
+    (1, 64, 2, 1, 256, 16, {}),
+    (1, 64, 4, 2, 128, 16, {"window": 24}),
+    (1, 64, 4, 2, 128, 32, {"logit_cap": 30.0}),
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=lambda c: "-".join(map(str, c[:6])) +
+                         "".join(f"-{k}{v}" for k, v in c[6].items()))
+def test_bf16_flash_grads_at_large_scores_match_autograd(case):
+    """bf16 on the CPU, q and k at std 60: dq, dk, dv through
+    ``FlashAttention`` are finite and equal autograd through
+    ``attention_chunked`` in bf16 within ``BF16_TOL`` of the largest
+    entry."""
+    B, S, H, KV, dh, chunk, opts = case
+    rng = np.random.default_rng(5)
+    f = lambda std, *s: torch.from_numpy(
+        (std * rng.standard_normal(s)).astype(np.float32)).bfloat16()
+    q, k = f(60.0, B, S, H, dh), f(60.0, B, S, KV, dh)
+    v, do = f(1.0, B, S, KV, dh), f(1.0, B, S, H, dh)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ins), ins, do)
+    got = grads(lambda *t: FA.flash_attention(*t, chunk=chunk, **opts))
+    want = grads(lambda *t: FA.attention_chunked(
+        *t, chunk_q=chunk, chunk_k=chunk, **opts))
+    for g, wg in zip(got, want):
+        g, wg = g.float(), wg.float()
+        assert bool(torch.isfinite(g).all())
+        top = float(wg.abs().max())
+        assert float((g - wg).abs().max()) <= BF16_TOL * top, (
+            float((g - wg).abs().max()), top)
+
+
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=lambda c: "-".join(map(str, c[:6])) +
+                         "".join(f"-{k}{v}" for k, v in c[6].items()))
+def test_bf16_kernel_route_grads_at_large_scores(case):
+    """The card's route on the CPU: ``flash_attention_bwd`` with float32
+    scores (its default, as the bf16 kernel's accumulators hold them)
+    on the bf16 inputs: within ``BF16_TOL`` of autograd through the
+    float32 plain version at std-60 q and k, nearly one-hot rows
+    included."""
+    B, S, H, KV, dh, chunk, opts = case
+    rng = np.random.default_rng(6)
+    f = lambda std, *s: torch.from_numpy(
+        (std * rng.standard_normal(s)).astype(np.float32)).bfloat16()
+    q, k = f(60.0, B, S, H, dh), f(60.0, B, S, KV, dh)
+    v, do = f(1.0, B, S, KV, dh), f(1.0, B, S, H, dh)
+    got = FA.flash_attention_bwd(q, k, v, do, **opts)
+    ins = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(FA.attention_chunked(*ins, **opts), ins,
+                               do.float())
+    for g, wg in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        top = float(wg.abs().max())
+        assert float((g.float() - wg).abs().max()) <= BF16_TOL * top
 
 
 # ---------------------------------------------------------------------------

@@ -163,8 +163,66 @@ def test_corruption_missing_leaf_and_shape_raise(tmp_path):
     wrong["params"]["final_ln"] = torch.zeros(9, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shape mismatch"):
         mgr.restore(wrong)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="shardings"):
         mgr.restore(port_state(), shardings=object())
+    with pytest.raises(ValueError, match="meta"):
+        mgr.restore(interop.tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            port_state()))
+
+
+RESTORE_CHILD = r"""
+import hashlib
+import numpy as np
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.interop import to_numpy, tree_map
+mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("data",))
+mgr = CheckpointManager(os.environ["CKPT"], device="cpu")
+whole = torch.load(os.environ["LIKE"])
+like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                whole)
+sh = tree_map(lambda t: (mesh, (Shard(0),) if t.ndim else (Replicate(),)),
+              like)
+step, got = mgr.restore(like, shardings=sh)
+mgr.close()
+man = json.load(open(os.path.join(os.environ["CKPT"], f"step_{step:010d}",
+                                  "manifest.json")))
+digests = {e["name"]: e["sha256"] for e in man["leaves"]}
+names = {"params__emb": got["params"]["emb"], "step": got["step"],
+         "opt__m__groups__b0__attn__wq":
+         got["opt"]["m"]["groups"]["b0"]["attn"]["wq"]}
+same = {n: hashlib.sha256(to_numpy(t.full_tensor()).tobytes()
+                          ).hexdigest()[:16] == digests[n]
+        for n, t in names.items()}
+emb = got["params"]["emb"].to_local()
+done({"step": step, "same": same, "local": list(emb.shape),
+      "own_rows": bool(torch.equal(emb, whole["params"]["emb"].chunk(
+          WORLD)[RANK])),
+      "placements": [str(p) for p in got["params"]["emb"].placements],
+      "all_dtensors": all(isinstance(t, DTensor) for t in
+                          [got["step"], got["params"]["final_ln"]])})
+"""
+
+
+def test_restore_places_leaves_over_a_mesh(tmp_path):
+    """``restore(shardings=)`` onto an abstract (meta) ``like``
+    distributes each restored leaf to its placements over a gloo mesh of
+    2 CPU ranks: the emb rows split in two, each rank holding its own
+    half, the whole of every leaf hashing to the manifest's digest."""
+    from torch_ranks import run_ranks
+    ckpt = os.path.join(str(tmp_path), "ckpt")
+    mgr = CheckpointManager(ckpt, device="cpu")
+    mgr.save(11, port_state(), block=True)
+    mgr.close()
+    like = os.path.join(str(tmp_path), "like.pt")
+    torch.save(port_state(), like)
+    out = run_ranks(RESTORE_CHILD, 2, tmp_path, timeout=120,
+                    env={"CKPT": ckpt, "LIKE": like})
+    assert out["step"] == 11 and all(out["same"].values()), out
+    assert out["local"] == [8, 8] and out["own_rows"]
+    assert out["placements"] == ["S(0)"] and out["all_dtensors"]
 
 
 def test_save_far_restore_far_round_trip(tmp_path):

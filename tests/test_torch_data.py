@@ -85,10 +85,39 @@ def test_device_prefetcher_stages_batches_in_order():
     assert not pre._thread.is_alive()
 
 
-def test_prefetcher_raises_for_sharding_and_wants_a_card_by_default():
+PREFETCH_CHILD = r"""
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
+from repro_torch.data import pipeline as PP
+mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("data",))
+spec = PP.BatchSpec(4, 8)
+want = PP.PackedBatcher(PP.SyntheticCorpus(256), spec)
+pre = PP.DevicePrefetcher(PP.PackedBatcher(PP.SyntheticCorpus(256), spec),
+                          sharding=(mesh, (Shard(0),)), device="cpu")
+ok = []
+for _ in range(3):
+    got, w = next(pre), want.next_batch()
+    for k in w:
+        t = got[k]
+        rows = w[k][RANK * 2:RANK * 2 + 2]
+        ok.append(isinstance(t, DTensor) and t.placements == (Shard(0),)
+                  and t.to_local().numpy().tobytes() == rows.tobytes()
+                  and t.full_tensor().numpy().tobytes() == w[k].tobytes())
+pre.close()
+done({"ok": all(ok), "n": len(ok)})
+"""
+
+
+def test_prefetcher_raises_for_sharding_and_wants_a_card_by_default(
+        tmp_path):
+    """``sharding=`` places each staged leaf as a DTensor over a gloo
+    mesh of 2 CPU ranks: each rank keeps its 2 of the batch's 4 rows and
+    the whole is the batcher's batch; without a card the default device
+    raises."""
+    from torch_ranks import run_ranks
+    out = run_ranks(PREFETCH_CHILD, 2, tmp_path, timeout=120)
+    assert out == {"ok": True, "n": 6}
     b = PP.PackedBatcher(PP.SyntheticCorpus(256), PP.BatchSpec(2, 8))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        PP.DevicePrefetcher(b, sharding=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PP.DevicePrefetcher(b)

@@ -1,0 +1,316 @@
+"""The port's sharded training on the CPU, twin of
+``tests/test_distributed.py``: the step runs as DTensor over a gloo group
+of CPU processes (``torch_ranks.run_ranks``, one subprocess a rank), on a
+(4, 2) ("data", "model") mesh placed by ``train_specs``.  The reference's
+own sharded step fails on this jax (``with_sharding_constraint`` rejects
+``make_mesh``'s Explicit axes), so the port's (4, 2) step is held against
+the reference's single-device step, at the reference's bars.  The meshes
+of ``launch/mesh.py`` are built under PyTorch's fake process group, in a
+subprocess too: no group is ever started in the test process."""
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_ranks import SRC, run_ranks  # noqa: E402
+
+# the reference's bars (tests/test_distributed.py)
+DLOSS, DPARAM = 2e-4, 5e-3
+
+PARITY_CHILD = r"""
+import dataclasses
+import numpy as np
+from repro_torch.configs import ShapeCfg, get_config, reduce_for_smoke
+from repro_torch.interop import tree_flatten, tree_unflatten
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.specs import train_specs
+from repro_torch.models import lm, transformer as T
+from repro_torch.optim.adamw import AdamW
+from repro_torch.sharding import TRAIN_RULES, ShardCtx, distribute_tree, full
+
+cfg = dataclasses.replace(reduce_for_smoke(get_config("llama3-8b")),
+                          dtype="float32")
+opt = AdamW(lr=1e-3, weight_decay=0.0)
+inp = np.load(os.environ["INPUTS"])
+spec = tree_flatten(T.param_defs(cfg))[1]
+n = len([k for k in inp.files if k.startswith("p")])
+params = tree_unflatten(spec, [torch.from_numpy(inp[f"p{i}"])
+                               for i in range(n)])
+state = {"params": params, "opt": opt.init(params),
+         "step": torch.zeros((), dtype=torch.int32)}
+batch = {k: torch.from_numpy(inp[k]) for k in ("tokens", "labels")}
+B, S = batch["tokens"].shape
+
+mesh = make_dev_mesh(4, 2, device_type="cpu")
+cell, _ = train_specs(cfg, ShapeCfg("t", S, B, "train"), mesh, opt)
+state_sh, batch_sh = cell.shardings
+state_d = distribute_tree(state, state_sh)
+batch_d = distribute_tree(batch, batch_sh)
+step = lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh, TRAIN_RULES))
+new, m = step(state_d, batch_d)
+
+before = [tuple(p.placements) for p in tree_flatten(state_d["params"])[0]]
+after = [tuple(p.placements) for p in tree_flatten(new["params"])[0]]
+leaves = [full(p).numpy() for p in tree_flatten(new["params"])[0]]
+if RANK == 0:
+    np.savez(os.environ["OUTPUTS"], *leaves)
+done({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+      "step": int(full(new["step"])),
+      "sharded_leaves": sum(any(p.is_shard() for p in pl) for pl in before),
+      "placements_kept": before == after,
+      "batch": [str(p) for p in batch_d["tokens"].placements]})
+"""
+
+
+def _reference_step(tmp_path):
+    """The reference's single-device step on llama3-8b at smoke size,
+    float32 (``test_sharded_train_step_matches_single_device``'s
+    inputs), with its inputs written for the child."""
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.models import lm, transformer as T
+    from repro.optim.adamw import AdamW
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("llama3-8b")),
+                              dtype="float32")
+    opt = AdamW(lr=1e-3, weight_decay=0.0)
+    key = jax.random.PRNGKey(0)
+    params = T.tree_init(T.param_defs(cfg), cfg, key)
+    params = jax.tree.map(lambda p: p.astype(jnp.float32), params)
+    state = {"params": params, "opt": opt.init(params),
+             "step": jnp.zeros((), jnp.int32)}
+    B, S = 8, 32
+    batch = {"tokens": jax.random.randint(key, (B, S), 0, cfg.vocab),
+             "labels": jax.random.randint(key, (B, S), 0, cfg.vocab)}
+    new, metrics = jax.jit(lm.make_train_step(cfg, opt))(state, batch)
+    inputs = os.path.join(str(tmp_path), "inputs.npz")
+    np.savez(inputs, tokens=np.asarray(batch["tokens"], np.int32),
+             labels=np.asarray(batch["labels"], np.int32),
+             **{f"p{i}": np.asarray(p)
+                for i, p in enumerate(jax.tree.leaves(params))})
+    return inputs, new, metrics
+
+
+def test_sharded_train_step_matches_single_device_reference(tmp_path):
+    """llama3-8b at smoke size, float32, B=8, S=32, AdamW(lr=1e-3,
+    weight_decay=0): the port's step on a (4, 2) gloo mesh against the
+    reference's single-device step, dloss < 2e-4 and dparam < 5e-3 over
+    every param leaf; the params really are sharded and keep their
+    placements through the update."""
+    inputs, ref, ref_m = _reference_step(tmp_path)
+    outputs = os.path.join(str(tmp_path), "outputs.npz")
+    out = run_ranks(PARITY_CHILD, 8, tmp_path,
+                    env={"INPUTS": inputs, "OUTPUTS": outputs})
+    assert abs(out["loss"] - float(ref_m["loss"])) < DLOSS, out
+    assert math.isclose(out["grad_norm"], float(ref_m["grad_norm"]),
+                        rel_tol=1e-4)
+    assert out["step"] == 1
+    assert out["sharded_leaves"] > 0 and out["placements_kept"]
+    assert out["batch"] == ["S(0)", "R"]       # batch over "data"
+    got = np.load(outputs)
+    want = jax.tree.leaves(ref["params"])
+    assert len(got.files) == len(want)
+    for i, w in enumerate(want):
+        d = float(np.max(np.abs(got[f"arr_{i}"] - np.asarray(w))))
+        assert d < DPARAM, (i, d)
+
+
+FAMILIES_CHILD = r"""
+import dataclasses
+from repro_torch.configs import ShapeCfg, get_config, reduce_for_smoke
+from repro_torch.interop import tree_leaves
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.specs import train_specs
+from repro_torch.launch.train import build_state
+from repro_torch.models import lm
+from repro_torch.optim.adamw import AdamW
+from repro_torch.sharding import TRAIN_RULES, ShardCtx, distribute_tree, full
+
+mesh = make_dev_mesh(2, 2, device_type="cpu")
+opt = AdamW(lr=1e-3, weight_decay=0.0)
+out = {}
+for arch, extra in (("recurrentgemma-2b", {"remat": "block"}),
+                    ("rwkv6-1.6b", {}), ("qwen2-moe-a2.7b", {}),
+                    ("qwen2-moe-a2.7b", {"moe_dispatch": "grouped"})):
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              dtype="float32", **extra)
+    g = torch.Generator().manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    state = build_state(cfg, opt, 0, "cpu")
+    cell, _ = train_specs(cfg, ShapeCfg("t", 32, 8, "train"), mesh, opt)
+    new, m = lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh, TRAIN_RULES))(
+        distribute_tree(state, cell.shardings[0]),
+        distribute_tree(batch, cell.shardings[1]))
+    plain, pm = lm.make_train_step(cfg, opt)(state, batch)
+    out[arch + "".join(f"-{v}" for v in extra.values())] = {
+        "dloss": abs(float(m["loss"]) - float(pm["loss"])),
+        "dparam": max(float((full(a) - b).abs().max()) for a, b in zip(
+            tree_leaves(new["params"]), tree_leaves(plain["params"])))}
+done(out)
+"""
+
+
+def test_sharded_families_match_their_plain_step(tmp_path):
+    """The other block kinds on a (2, 2) gloo mesh, at smoke size in
+    float32, against the port's own one-device step: the hybrid under
+    remat (rg_lru on the width's shards, flash with its heads
+    replicated since its one KV head cannot split), RWKV's time mix and
+    the global MoE on whole values, the grouped MoE with its
+    constraints."""
+    out = run_ranks(FAMILIES_CHILD, 4, tmp_path)
+    assert len(out) == 4
+    for name, d in out.items():
+        assert d["dloss"] < DLOSS and d["dparam"] < DPARAM, (name, d)
+
+
+ELASTIC_SAVE = r"""
+import dataclasses
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ShapeCfg, get_config, reduce_for_smoke
+from repro_torch.interop import tree_map
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.specs import train_specs
+from repro_torch.launch.train import build_state
+from repro_torch.models import lm
+from repro_torch.optim.adamw import AdamW
+from repro_torch.sharding import TRAIN_RULES, ShardCtx, distribute_tree, full
+
+cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-0.5b")),
+                          dtype="float32")
+opt = AdamW(lr=1e-3)
+g = torch.Generator().manual_seed(0)
+batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=g,
+                          dtype=torch.int32) for k in ("tokens", "labels")}
+mesh = make_dev_mesh(4, 2, device_type="cpu")
+cell, _ = train_specs(cfg, ShapeCfg("t", 32, 8, "train"), mesh, opt)
+state = distribute_tree(build_state(cfg, opt, 0, "cpu"), cell.shardings[0])
+state, m = lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh, TRAIN_RULES))(
+    state, distribute_tree(batch, cell.shardings[1]))
+whole = tree_map(full, state)
+if RANK == 0:
+    mgr = CheckpointManager(os.environ["CKPT"], device="cpu")
+    mgr.save(1, whole, block=True)
+    mgr.close()
+done({"loss1": float(m["loss"])})
+"""
+
+ELASTIC_RESTORE = r"""
+import dataclasses
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ShapeCfg, get_config, reduce_for_smoke
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.specs import train_specs
+from repro_torch.launch.train import build_state
+from repro_torch.models import lm
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime.elastic import plan_resize
+from repro_torch.sharding import TRAIN_RULES, ShardCtx, distribute_tree, full
+
+cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-0.5b")),
+                          dtype="float32")
+opt = AdamW(lr=1e-3)
+g = torch.Generator().manual_seed(0)
+batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=g,
+                          dtype=torch.int32) for k in ("tokens", "labels")}
+# "lose" two of four workers of 2 chips: replan to 4 ranks
+plan = plan_resize(alive_workers=[0, 1], chips_per_worker=2,
+                   model_parallel=2, global_batch=8)
+mesh = make_dev_mesh(*plan.mesh_shape, device_type="cpu")
+cell, _ = train_specs(cfg, ShapeCfg("t", 32, 8, "train"), mesh, opt)
+mgr = CheckpointManager(os.environ["CKPT"], device="cpu")
+# onto the abstract state: each rank reads the leaves, keeps its slices
+step0, state = mgr.restore(cell.abstract[0], shardings=cell.shardings[0])
+mgr.close()
+state, m2 = lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh, TRAIN_RULES))(
+    state, distribute_tree(batch, cell.shardings[1]))
+# the same two steps on one device
+plain = lm.make_train_step(cfg, opt)
+s, _ = plain(build_state(cfg, opt, 0, "cpu"), batch)
+s, p2 = plain(s, batch)
+done({"mesh": list(plan.mesh_shape), "restored": step0,
+      "loss2": float(m2["loss"]), "plain_loss2": float(p2["loss"]),
+      "step": int(full(state["step"]))})
+"""
+
+
+def test_elastic_restore_under_smaller_mesh(tmp_path):
+    """Twin of the reference's elastic test: a step on the (4, 2) mesh,
+    a checkpoint, then two workers lost, ``plan_resize`` to 4 ranks, the
+    state restored onto the smaller mesh (``restore(shardings=)``) and
+    a second step, whose loss is the one-device run's.  The restore
+    reads into the abstract (meta) state that ``train_specs`` gives."""
+    env = {"CKPT": os.path.join(str(tmp_path), "ckpt")}
+    run_ranks(ELASTIC_SAVE, 8, tmp_path, env=env)
+    out = run_ranks(ELASTIC_RESTORE, 4, tmp_path, env=env)
+    assert out["mesh"][0] * out["mesh"][1] <= 4
+    assert out["restored"] == 1 and out["step"] == 2
+    assert math.isfinite(out["loss2"])
+    assert abs(out["loss2"] - out["plain_loss2"]) < DLOSS, out
+
+
+FAKE_CHILD = r"""
+import json
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.sharding import AbstractMesh, placements, resolve_spec, TRAIN_RULES
+from torch.distributed.tensor import distribute_tensor
+
+out = {}
+for multi, world in ((False, 256), (True, 512)):
+    dist.init_process_group("fake", store=FakeStore(), rank=world - 1,
+                            world_size=world)
+    m = make_production_mesh(multi_pod=multi, device_type="cpu")
+    out[str(world)] = [list(m.mesh_dim_names), list(m.shape)]
+    dist.destroy_process_group()
+# a joint ("pod", "data") dim: shard p * n_data + d on (pod p, data d)
+rows = {}
+t = torch.arange(8 * 3).reshape(8, 3)
+spec = resolve_spec((8, 3), ("batch", None), AbstractMesh((2, 2, 2),
+                    ("pod", "data", "model")), TRAIN_RULES)
+for r in range(8):
+    dist.init_process_group("fake", store=FakeStore(), rank=r, world_size=8)
+    from torch.distributed.device_mesh import init_device_mesh
+    m = init_device_mesh("cpu", (2, 2, 2),
+                         mesh_dim_names=("pod", "data", "model"))
+    d = distribute_tensor(t, m, list(placements(spec, m)), src_data_rank=None)
+    rows[r] = [m.get_coordinate(), d.to_local()[:, 0].tolist()]
+    dist.destroy_process_group()
+out["spec"] = [list(e) if isinstance(e, tuple) else e for e in spec]
+out["rows"] = rows
+print(json.dumps(out))
+"""
+
+
+def test_production_meshes_under_a_fake_group():
+    """``make_production_mesh`` under a fake 256- and 512-rank group: the
+    reference's shapes and axis names; and a joint ("pod", "data") batch
+    dim puts rows p * 2 + d on (pod p, data d), as jax's spec does."""
+    res = subprocess.run([sys.executable, "-c", FAKE_CHILD],
+                         env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["256"] == [["data", "model"], [16, 16]]
+    assert out["512"] == [["pod", "data", "model"], [2, 16, 16]]
+    assert out["spec"] == [["pod", "data"], None]
+    for (pod, data, _), rows in out["rows"].values():
+        c = pod * 2 + data                  # two rows a shard, 3 a row
+        assert rows == [6 * c, 6 * c + 3]
+
+
+def test_meshes_want_a_process_group():
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_dev_mesh(4, 2, device_type="cpu")

@@ -48,7 +48,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.serving.fleet", "repro_torch.launch.train",
             "repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
-            "repro_torch.core.offload", "repro_torch.runtime.elastic"} | {
+            "repro_torch.core.offload", "repro_torch.runtime.elastic",
+            "repro_torch.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.traffic"} | {
         f"repro_torch.benchmarks.{m}" for m in BENCH_MODULES} | {
         f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = ("import sys, importlib\n"
@@ -129,3 +131,19 @@ def test_bench_and_example_entry_points_want_a_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         mod.main(["--quick"] if name.startswith("benchmarks") else [])
+
+
+def test_importing_the_mesh_tooling_starts_no_process_group():
+    """``launch/mesh.py`` builds meshes in functions: importing it (and
+    the rules, specs and traffic) starts no process group, and leaves
+    PyTorch's internal fake group unimported."""
+    code = ("import sys\n"
+            "import torch.distributed as dist\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+            "import repro_torch.launch.traffic, repro_torch.sharding\n"
+            "assert not dist.is_initialized()\n"
+            "assert not any('fake_pg' in m for m in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
