@@ -190,6 +190,26 @@ and it stops at the first failing phase with a non-zero exit:
    ``FlashAttention`` in bf16 with q and k at std 60, at qwen2-0.5b's
    and the hybrid's train shapes, its gradients finite and within 2e-2
    of the largest of autograd through the float32 plain version;
+13b. cost phase (ROADMAP A.8): first the flash wrapper's host us a
+   call (``benchmarks/flash_host.py``'s ``measure``), on a quiet host;
+   then the dry run (``repro_torch.launch.dryrun.run_cell``) of
+   qwen2-0.5b's ``train_4k`` and ``decode_32k`` cells on the (16, 16)
+   production mesh, rank 0 of PyTorch's fake 256-rank group, in a
+   subprocess that sees no card; meanwhile one train step of
+   full-width qwen2-0.5b (bf16, ``remat="block"``, seed 0) at 8 x 128
+   and at 2 x 4096 tokens, and of full-width recurrentgemma-2b cut to 3
+   layers (2 x 2048) and qwen2-moe-a2.7b cut to 2 (2 x 1024), each
+   counted on meta tensors by the dry run's ``trace_step`` and run on
+   the card: the trace's argument bytes are the state and batch on the
+   card, the card's ``FlopCounterMode`` total equals the trace's
+   FLOPs, and the trace's argument + temp is within 5% of
+   ``max_memory_allocated`` over a real step (peak stats reset just
+   before; the real step counted, 48 flash launches at full depth,
+   each kernel of a cut arch at least once); then the dry-run
+   records' FLOPs, collectives by
+   category, argument + temp and roofline terms (``[cost]`` lines), the
+   train cell held to its hand counts: FLOPs within 10% of 1.18e14 a
+   rank, argument 46,339,972 B, argument + temp within 2x of 20 GB;
 14. bench phase (the same cut of depth; a ``[time]`` line after each
    module): ``repro_torch.benchmarks.run --quick`` on the card (the
    paper's channel, contention, completion, RDMA-analogue, Table 1
@@ -229,7 +249,9 @@ chaos, trace, fleet and family serves, the Fig-8 sweep, the bench
 phase's benchmarks and examples) and read just after;
 the ``kernels`` line sums them, and gives the fleet serves' share as
 ``fleet_launches``, the sharded steps' as ``shard_launches`` (a
-``shard_runs`` line holds their numbers) and the training runs' as
+``shard_runs`` line holds their numbers), the cost phase's real steps'
+as ``cost_launches`` (a ``cost_runs`` line holds the phase's numbers;
+flash also ``wrapper_host_us``) and the training runs' as
 ``train_launches`` (flash
 also the train-shape forward and backward times; a
 ``train_runs`` line before it holds each training run's numbers).  Last it prints the card line, the
@@ -2312,6 +2334,238 @@ def shard_phases(ckpt_dir: str) -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the cost pass (ROADMAP A.8): launch/hlo.py and launch/dryrun.py
+# ---------------------------------------------------------------------------
+
+COST_RUNS = []
+COST_LAUNCHES = {}       # launches of the counted real steps
+COST_MEM_TOL = 0.05      # trace's argument + temp vs max_memory_allocated
+# the dry run of qwen2-0.5b / train_4k / single, rank 0 of (16, 16): the
+# hand counts of its FLOPs (held within 10%) and of argument + temp
+# (held within 2x), and its argument bytes
+DRYRUN_FLOPS_HAND, DRYRUN_FLOPS_TOL = 1.18e14, 0.10
+DRYRUN_MEM_HAND = 20e9
+DRYRUN_ARGUMENT = 46339972
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"))
+# (arch, layers, B, S): the count held on the card for the routes
+# qwen2-0.5b does not take, the hybrid's rg_lru and conv and the MoE's
+# routing and expert dispatch, at full width with their depth cut
+COST_CUT_STEPS = (("recurrentgemma-2b", 3, 2, 2048),
+                  ("qwen2-moe-a2.7b", 2, 2, 1024))
+DRYRUN_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+out = []
+for arch, shape in json.loads(sys.argv[2]):
+    rec = D.run_cell(arch, shape, "single")
+    live = []
+    if rec["status"] == "ok" and SHAPES[shape].kind == "train":
+        # the storages live at the peak (a second trace of the cell)
+        with D.fake_group(256):
+            _, tr = D.trace_step(*D._build(get_config(arch), SHAPES[shape],
+                                           make_production_mesh(), "train"))
+        live = tr.live_at_peak(8)
+    out.append({"record": rec, "live_at_peak": live})
+print(json.dumps(out))
+"""
+
+
+def start_dryrun():
+    """The dry run of ``DRYRUN_CELLS`` in a subprocess that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty): ``run_cell`` under its own fake
+    256-rank group, on meta tensors."""
+    import subprocess
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, SRC, json.dumps(DRYRUN_CELLS)],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cost_step_check(B: int, S: int, card: str, arch: str = "qwen2-0.5b",
+                    layers: int = 0) -> dict:
+    """One train step of full-width ``arch`` (bf16, remat per block,
+    seed 0, B x S tokens; cut to ``layers`` where given) counted on meta
+    tensors by the dry run's ``trace_step`` and run on the card: the
+    trace's argument bytes are the state and batch on the card, the
+    card's ``FlopCounterMode`` total (the kernels then go through their
+    ops) equals the trace's FLOPs, and the trace's argument + temp is
+    within ``COST_MEM_TOL`` of ``max_memory_allocated`` over a real
+    step, its peak stats reset just before.  The real step is counted,
+    and each kernel of the arch launched in it; a third step under
+    ``hlo.Trace`` gives the card's own count (printed)."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hlo import Trace, storage_bytes
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import for_arch
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    assert cfg.remat == "block", cfg.remat
+    opt = for_arch(cfg.arch_id)
+    step = lm.make_train_step(cfg, opt)
+    params = T.tree_abstract(T.param_defs(cfg), cfg)
+    tok = lambda: torch.empty((B, S), dtype=torch.int32, device="meta")
+    t0 = time.perf_counter()
+    full, tr = D.trace_step(step, (
+        {"params": params, "opt": opt.init_abstract(params),
+         "step": torch.empty((), dtype=torch.int32, device="meta")},
+        {"tokens": tok(), "labels": tok()}))
+    trace_s = time.perf_counter() - t0
+    mem = full["memory"]
+    fake_total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+
+    free_card()
+    state = build_state(cfg, opt, 0, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(B * S)
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    on_card = sum(storage_bytes((state, batch)).values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: step(state, batch))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(out[1]["loss"])
+    del out
+    for name, n in launches.items():
+        COST_LAUNCHES[name] = COST_LAUNCHES.get(name, 0) + n
+    free_card()
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    free_card()
+    own = Trace()
+    own.arguments(state, batch)
+    with own:
+        step(state, batch)
+    torch.cuda.synchronize()
+    del state, batch
+    free_card()
+    cut = f" cut to {layers} layers" if layers else ""
+    row = {"cell": f"{arch}{cut} {B}x{S} bf16 remat=block, one device",
+           "trace_s": trace_s, "fake_flops": full["flops"],
+           "card_flops": card_flops,
+           "fake_flops_by_op": dict(tr.flops_by_op),
+           "fake_argument_bytes": mem["argument_size_in_bytes"],
+           "fake_temp_bytes": mem["temp_size_in_bytes"],
+           "card_argument_bytes": on_card, "allocated_before": before,
+           "card_own_temp_bytes": own.peak - (mem["output_size_in_bytes"]
+                                              - mem["alias_size_in_bytes"]),
+           "max_memory_allocated": peak, "memory_ratio": fake_total / peak,
+           "step_ms": step_ms, "loss": loss, "launches": launches,
+           "live_at_peak": tr.live_at_peak(4)}
+    print(f"[cost] real step {row['cell']}: FLOPs on the card {card_flops} "
+          f"= trace {full['flops']:.0f} (by op {row['fake_flops_by_op']}); "
+          f"trace {trace_s:.1f}s; loss {loss:.4f}; launches {launches}",
+          flush=True)
+    print(f"[cost] memory: trace argument + temp {fake_total} B (argument "
+          f"{mem['argument_size_in_bytes']} = state and batch on the card "
+          f"{on_card}; temp {mem['temp_size_in_bytes']}, the card's own "
+          f"count's {row['card_own_temp_bytes']}) against "
+          f"max_memory_allocated {peak} B (allocated before the step "
+          f"{before}): ratio {row['memory_ratio']:.4f} (bar 1 +- "
+          f"{COST_MEM_TOL}); largest live at the trace's peak "
+          f"{[(r['shape'], r['dtype']) for r in row['live_at_peak']]} on "
+          f"{card}", flush=True)
+    assert on_card == mem["argument_size_in_bytes"], row
+    assert card_flops == full["flops"], row
+    assert abs(row["memory_ratio"] - 1.0) <= COST_MEM_TOL, row
+    if layers:
+        used = {"flash_attention": "attn", "rg_lru_scan": "rec"}
+        assert all(launches[k] > 0 for k, kind in used.items()
+                   if kind in cfg.block_pattern), launches
+    else:
+        assert launches["flash_attention"] == \
+            TRAIN_LAUNCHES[arch]["flash_attention"], launches
+    COST_RUNS.append(row)
+    return row
+
+
+def cost_phase(card: str) -> dict:
+    """The cost pass (ROADMAP A.8): the flash wrapper's host time a
+    call; the dry run of ``DRYRUN_CELLS`` in a subprocess, meanwhile the
+    one-device steps of ``cost_step_check``, qwen2-0.5b's at 8 x 128
+    and 2 x 4096 and the cut ones of ``COST_CUT_STEPS``; then
+    each dry-run record's FLOPs, collectives, argument + temp and
+    roofline terms, the train cell held to its hand counts.  Returns the
+    wrapper's timing."""
+    import torch
+    from repro_torch.benchmarks.flash_host import measure
+    # the host time first, while no child competes for the host's cores
+    shape = (8, 128, 14, 2, 64)
+    host = measure(shape, torch.device("cuda"), rounds=15)
+    print(f"[cost] flash wrapper bf16 (B, S, H, KV, dh)={shape}: host "
+          f"{host['host_us_per_call']:.2f} us a call (min "
+          f"{host['host_us_min']:.2f}, max {host['host_us_max']:.2f}), "
+          f"device {host['kernel_ms']:.5f} ms on {card}", flush=True)
+    child = start_dryrun()
+    try:
+        cost_step_check(8, 128, card)
+        cost_step_check(2, 4096, card)
+        for arch, layers, B, S in COST_CUT_STEPS:
+            cost_step_check(B, S, card, arch, layers)
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert child.returncode == 0, err[-3000:]
+    for cell in json.loads(out.strip().splitlines()[-1]):
+        rec = cell["record"]
+        assert rec["status"] == "ok", rec.get("traceback", rec)
+        f, r = rec["full"], rec["roofline"]
+        mem = f["memory"]
+        total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        coll = {k: (v["count"], v["operand_bytes"])
+                for k, v in sorted(f["collectives"].items())}
+        print(f"[cost] dryrun {rec['arch']} {rec['shape']} single (16, 16) "
+              f"rank 0, H100 constants: trace {f['compile_s']}s "
+              f"FLOPs={f['flops']:.6e} collective_bytes="
+              f"{f['collective_bytes_per_device']:.6e} by category (count, "
+              f"operand bytes) {coll} argument+temp={total} (argument "
+              f"{mem['argument_size_in_bytes']}, temp "
+              f"{mem['temp_size_in_bytes']}, output "
+              f"{mem['output_size_in_bytes']}, alias "
+              f"{mem['alias_size_in_bytes']}) modeled_bytes="
+              f"{rec['modeled_bytes']['total']:.6e} terms s: compute "
+              f"{r['compute_s']:.6f} memory {r['memory_s']:.6f} collective "
+              f"{r['collective_s']:.6f} dominant {r['dominant']} "
+              f"useful_flops_ratio {r['useful_flops_ratio']:.4f} "
+              f"roofline_fraction {r['roofline_fraction']:.6f}", flush=True)
+        if cell["live_at_peak"]:
+            print(f"[cost] dryrun {rec['arch']} {rec['shape']} live at the "
+                  f"peak: {cell['live_at_peak']}", flush=True)
+        COST_RUNS.append({"cell": f"{rec['arch']}/{rec['shape']}/single",
+                          "flops": f["flops"], "collectives": f["collectives"],
+                          "memory": mem, "roofline": r,
+                          "trace_s": f["compile_s"],
+                          "live_at_peak": cell["live_at_peak"]})
+        if rec["kind"] == "train":
+            assert abs(f["flops"] / DRYRUN_FLOPS_HAND - 1) <= \
+                DRYRUN_FLOPS_TOL, f["flops"]
+            assert DRYRUN_MEM_HAND / 2 <= total <= 2 * DRYRUN_MEM_HAND, total
+            assert mem["argument_size_in_bytes"] == DRYRUN_ARGUMENT, mem
+        else:
+            assert f["flops"] > 0 and f["collective_bytes_per_device"] > 0
+    return host
+
+
 T0 = time.perf_counter()
 
 
@@ -2443,6 +2697,9 @@ def main() -> int:
         lap("shard phases")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_card()
+    flash_host = cost_phase(card)
+    lap("cost phase")
     with cut_depth():
         bench_phase()
     lap("bench phase")
@@ -2515,16 +2772,20 @@ def main() -> int:
         k["fleet_launches"] = FLEET_LAUNCHES.get(k["name"], 0)
         k["train_launches"] = TRAIN_LAUNCHES_TOTAL.get(k["name"], 0)
         k["shard_launches"] = SHARD_LAUNCHES.get(k["name"], 0)
+        k["cost_launches"] = COST_LAUNCHES.get(k["name"], 0)
     # the training route: flash's forward and backward (plain PyTorch),
     # the reversed rg_lru scan
     kernels[2].update(
         train_fwd_ms=train_k["fwd_ms"], train_bwd_ms=train_k["bwd_ms"],
         train_bwd_bound_ms=train_k["bwd_bound_ms"],
         train_grad_rel_err=train_k["grad_err"],
-        train_shape="bf16 (8, 128, 14/2, 64) causal")
+        train_shape="bf16 (8, 128, 14/2, 64) causal",
+        wrapper_host_us=flash_host["host_us_per_call"],
+        wrapper_fwd_ms=flash_host["kernel_ms"])
     kernels[3].update(train_bwd_rel_err=train_k["rg_lru_bwd_err"])
     print(json.dumps({"train_runs": TRAIN_RUNS}), flush=True)
     print(json.dumps({"shard_runs": SHARD_RUNS}), flush=True)
+    print(json.dumps({"cost_runs": COST_RUNS}), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ the roofline summary read from dry-run artifacts.
 Twin of ``benchmarks/e2e_step.py``, with its row names plus
 ``--device``.  Each row is host wall time (median of 3) around one train
 step that ends in a device synchronise, so it holds the card's work.
-The roofline rows read ``experiments/dryrun/single/*.json`` (the dry
-run's artifacts, ROADMAP A.8); without that folder there are none,
-as in the reference.
+The roofline rows read ``experiments/dryrun_torch/single/*.json``, the
+artifacts of the port's dry run (``python -m repro_torch.launch.dryrun``,
+H100 constants); without that folder there are none, as in the
+reference.
 
     python -m repro_torch.benchmarks.e2e_step [--quick] [--device cpu]
 """
@@ -24,12 +25,10 @@ import torch
 from repro_torch.benchmarks.common import bench_seed, emit, time_call
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.device import resolve_device
+from repro_torch.launch.dryrun import ART_DIR
 from repro_torch.models import lm
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
-
-ART = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                   "experiments", "dryrun")
 
 
 def _sync(dev: torch.device) -> None:
@@ -67,7 +66,7 @@ def run(quick: bool = False, device=None) -> List[dict]:
                      "tok_per_s": toks / t})
 
     # roofline summary from artifacts (if the dry-run has been run)
-    for path in sorted(glob(os.path.join(ART, "single", "*.json"))):
+    for path in sorted(glob(os.path.join(ART_DIR, "single", "*.json"))):
         with open(path) as f:
             rec = json.load(f)
         if rec.get("status") != "ok" or "roofline" not in rec:

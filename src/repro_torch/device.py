@@ -2,10 +2,19 @@
 
 Entry points default to ``"cuda"``.  Without a card that default raises;
 it never carries on on the CPU.  Only an explicit ``"cpu"`` runs there.
+
+``traced`` tells the kernel wrappers when a call is watched rather than
+run: a meta tensor or a FakeTensor (the cost pass, ``launch/dryrun.py``)
+or a dispatch mode on the stack (a FLOP or memory count,
+``launch/hlo.py``).  Such a call goes through the kernel's
+``torch.library`` op so that the mode sees it as one op with the
+kernel's output; an unwatched call launches directly, since the
+dispatcher costs host time on every call.
 """
 from __future__ import annotations
 
 import functools
+import sys
 
 import torch
 
@@ -33,3 +42,18 @@ def sm_count(device: torch.device) -> int:
     device (the kernels' launch plans ask on every call)."""
     index = torch.device(device).index
     return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a FakeTensor; its module is not imported for the
+    asking."""
+    mod = sys.modules.get("torch._subclasses.fake_tensor")
+    return mod is not None and isinstance(t, mod.FakeTensor)
+
+
+def traced(t: torch.Tensor) -> bool:
+    """Whether a kernel call on ``t`` must go through its op (module
+    note): ``t`` is a meta tensor or a FakeTensor, or a dispatch mode is
+    on the stack."""
+    return (t.device.type == "meta"
+            or torch._C._len_torch_dispatch_stack() > 0 or is_fake(t))

@@ -39,6 +39,15 @@ q heads holds whole GQA groups, which holds when the KV heads split
 evenly (``KV % n == 0`` over the mesh dims that shard heads).  Any other
 placement of q is redistributed to ``Replicate`` first, and k and v take
 q's placements.
+
+A traced call (``repro_torch.device.traced``: meta or fake tensors, or
+a dispatch mode such as a FLOP or memory count on the stack) goes
+through the ``torch.library`` op ``repro_torch::flash_attention``.  Its
+fake version allocates what ``_launch`` allocates on the card, the one
+output, and nothing more, and ``FlashAttention`` records the kernel
+route for the backward; its FLOP formula counts the live (q, k) pairs,
+4 B H dh a pair (``live_pairs``), as the kernel's bound does.  An
+untraced call never passes through the dispatcher.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.device import is_fake, traced
 from repro_torch.kernels import build
 from repro_torch.sharding import is_dtensor
 
@@ -226,17 +236,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, logit_cap, chunk):
-        if q.device.type == "cpu":
-            o = attention_chunked(q, k, v, causal=causal, window=window,
-                                  chunk_q=chunk, chunk_k=chunk, scale=scale,
-                                  logit_cap=logit_cap)
-        else:
-            o = _launch(q, k, v, causal, window, scale, logit_cap)
+        o = _forward(q, k, v, causal, window, scale, logit_cap, chunk)
         ctx.save_for_backward(q, k, v)
         # the backward rebuilds the scores as this forward built them
         ctx.opts = dict(causal=causal, window=window, scale=scale,
                         logit_cap=logit_cap, chunk=chunk,
-                        chunked_scores=q.device.type == "cpu")
+                        chunked_scores=_plain_route(q))
         return o
 
     @staticmethod
@@ -407,13 +412,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _on_local_shards(q, k, v, causal=causal, window=window,
                                 scale=scale, logit_cap=logit_cap,
                                 chunk=chunk)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not traced(q):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, scale,
                                     logit_cap, chunk)
+    return _forward(q, k, v, causal, window, scale, logit_cap, chunk)
+
+
+def _plain_route(q) -> bool:
+    """Whether the forward on ``q`` is the plain version (real CPU
+    tensors), not the kernel (CUDA, meta and fake tensors)."""
+    return q.device.type == "cpu" and not is_fake(q)
+
+
+def _forward(q, k, v, causal, window, scale, logit_cap, chunk):
+    """The forward on one device: the op when traced (module note), else
+    the kernel on CUDA tensors and the plain version on CPU ones."""
+    if traced(q):
+        return torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, window, scale, logit_cap, chunk)
+    return _direct(q, k, v, causal, window, scale, logit_cap, chunk)
+
+
+def _direct(q, k, v, causal, window, scale, logit_cap, chunk):
     if q.device.type == "cpu":
         return attention_chunked(q, k, v, causal=causal, window=window,
                                  chunk_q=chunk, chunk_k=chunk, scale=scale,
@@ -442,19 +466,25 @@ def _on_local_shards(q, k, v, **opts):
         device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
-def _launch(q, k, v, causal, window, scale, logit_cap) -> torch.Tensor:
-    """The kernel on CUDA tensors."""
-    B, S, H, dh = q.shape
+def _kernel_args(q, window, logit_cap) -> None:
+    """What the kernel takes: bf16 or float32, a d_head of
+    ``HEAD_DIMS``, a window >= 1, a cap > 0."""
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention takes bf16 or float32, not "
                          f"{q.dtype}")
-    if dh not in HEAD_DIMS:
+    if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes d_head in {HEAD_DIMS}, "
-                         f"not {dh}")
+                         f"not {q.shape[-1]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
+
+
+def _launch(q, k, v, causal, window, scale, logit_cap) -> torch.Tensor:
+    """The kernel on CUDA tensors."""
+    B, S, H, dh = q.shape
+    _kernel_args(q, window, logit_cap)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
@@ -488,3 +518,43 @@ def _launch(q, k, v, causal, window, scale, logit_cap) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the traced route: the op, its fake version and its FLOP formula
+# ---------------------------------------------------------------------------
+
+def live_pairs(S: int, causal: bool, window: Optional[int]) -> int:
+    """The (q, k) pairs the mask keeps, of S x S: k <= q when causal,
+    k > q - window with a window."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2 if causal else S * S
+    if causal:
+        return window * (window + 1) // 2 + (S - window) * window
+    return S * S - (S - window) * (S - window + 1) // 2
+
+
+def _register_op() -> None:
+    """``repro_torch::flash_attention`` (module note), once a process."""
+    if hasattr(torch.ops.repro_torch, "flash_attention"):
+        return
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: Optional[int], scale: Optional[float],
+           logit_cap: Optional[float], chunk: int) -> torch.Tensor:
+        return _direct(q, k, v, causal, window, scale, logit_cap, chunk)
+
+    @op.register_fake
+    def _(q, k, v, causal, window, scale, logit_cap, chunk):
+        _kernel_args(q, window, logit_cap)
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, causal, window, *_, **__) -> int:
+        B, S, H, dh = q_shape
+        return 4 * B * H * dh * live_pairs(S, causal, window)
+
+
+_register_op()

@@ -27,6 +27,14 @@ recurrence is local along batch and along the width, so ``a``'s Shard(0)
 and Shard(2) are kept (``h0`` takes Shard(0) and Shard(1) to match), and
 any other placement, a split of time included, is replicated first.
 
+A traced call (``repro_torch.device.traced``: meta or fake tensors, or
+a dispatch mode such as a FLOP or memory count on the stack) goes
+through the ``torch.library`` op ``repro_torch::rg_lru_scan``, whose
+fake version allocates what the kernel route does, the one output, and
+whose FLOP formula counts the scan's 2 B T W (a multiply and an add a
+step and channel); an untraced call never passes through the
+dispatcher.
+
 ``plan`` is the kernel's launch rule (channels per CTA, time steps per
 stage, ring depth, TMA or cp.async route) and ``tensor_map`` the TMA
 geometry it implies; the source note of ``csrc/rg_lru.cu`` explains both.
@@ -38,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import sm_count
+from repro_torch.device import sm_count, traced
 from repro_torch.kernels import build
 from repro_torch.sharding import is_dtensor
 
@@ -179,7 +187,7 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
     _check(a, b, h0)
     if is_dtensor(a):
         return _on_local_shards(a, b, h0)
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda") and not traced(a):
         raise ValueError(f"rg_lru_scan runs on cuda or cpu, not {a.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
@@ -205,7 +213,15 @@ def _on_local_shards(a, b, h0):
 
 def _scan(a: torch.Tensor, b: torch.Tensor,
           h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain loop on CPU ones."""
+    """The op when traced (module note), else the kernel on CUDA tensors
+    and the plain loop on CPU ones."""
+    if traced(a):
+        return torch.ops.repro_torch.rg_lru_scan(a, b, h0)
+    return _direct(a, b, h0)
+
+
+def _direct(a: torch.Tensor, b: torch.Tensor,
+            h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     if a.device.type == "cpu":
         return rg_lru_scan_torch(a, b, h0)
     B, T, W = a.shape
@@ -227,3 +243,27 @@ def _scan(a: torch.Tensor, b: torch.Tensor,
 
 
 rg_lru_scan.launches = 0
+
+
+def _register_op() -> None:
+    """``repro_torch::rg_lru_scan`` (module note), once a process."""
+    if hasattr(torch.ops.repro_torch, "rg_lru_scan"):
+        return
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::rg_lru_scan", mutates_args=())
+    def op(a: torch.Tensor, b: torch.Tensor,
+           h0: Optional[torch.Tensor]) -> torch.Tensor:
+        return _direct(a, b, h0)
+
+    @op.register_fake
+    def _(a, b, h0):
+        return torch.empty_like(a)
+
+    @register_flop_formula(torch.ops.repro_torch.rg_lru_scan)
+    def _(a_shape, *_, **__) -> int:
+        B, T, W = a_shape
+        return 2 * B * T * W
+
+
+_register_op()

@@ -16,6 +16,10 @@ writes at ``len % Sbuf``, as the reference does.
 In place where the reference is functional: ``attention_apply`` writes
 prefill and decode K/V into the cache tensors it is given and returns
 those same tensors, so a stacked batch cache is updated without a copy.
+On a cache of DTensors (a sharded decode, ``launch/dryrun.py``'s serve
+cells) each rank writes the new rows into its own shard
+(``_write_rows``): DTensor has no strategy for an indexed write into a
+tensor sharded along the indexed dims.
 
 M-RoPE (``attention.mrope_sections``, qwen2-vl) rotates each band of
 rotary pairs by its own position stream; positions are then (B, S, 3).
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     NEG_INF, attention_chunked, flash_attention)
+from repro_torch.sharding import for_compute, is_dtensor
 
 
 @dataclass(frozen=True)
@@ -139,7 +144,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     H = q.shape[2]
     G = H // KV
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
-    qg = q.reshape(B, KV, G, dh)
+    qg = _whole_groups(q, KV).reshape(B, KV, G, dh)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
     if logit_cap is not None:
         s = logit_cap * torch.tanh(s / logit_cap)
@@ -149,6 +154,61 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
     return o.reshape(B, 1, H, dh)
+
+
+def _write_rows(buf: torch.Tensor, idx: torch.Tensor,
+                val: torch.Tensor) -> None:
+    """``buf[b, idx[b]] = val[b]`` for every batch row b, in place.  On
+    a DTensor ``buf`` (batch, positions and heads sharded) each rank
+    writes its own batch rows whose position lies in its slice of the
+    positions and leaves the others as they were."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    if not is_dtensor(buf):
+        buf[rows, idx] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pb = buf.device_mesh, list(buf.placements)
+    coord, shard = mesh.get_coordinate(), 0
+    for j, p in enumerate(pb):
+        if p == Shard(1):   # this rank's slice of the positions, in order
+            shard = shard * mesh.size(j) + coord[j]
+    p_idx = [p if p == Shard(0) else Replicate() for p in pb]
+    p_val = [p if p == Shard(0) else Shard(p.dim - 1)
+             if isinstance(p, Shard) and p.dim >= 2 else Replicate()
+             for p in pb]
+
+    def write(b, i, v):
+        n = b.shape[1]
+        at = i - shard * n
+        mine = ((at >= 0) & (at < n)).reshape((-1,) + (1,) * (v.ndim - 1))
+        at = torch.clamp(at, 0, n - 1)
+        r = torch.arange(b.shape[0], device=b.device)
+        b[r, at] = torch.where(mine, v, b[r, at])
+        return b
+
+    local_map(write, out_placements=pb, in_placements=(pb, p_idx, p_val),
+              device_mesh=mesh, redistribute_inputs=True)(buf, idx, val)
+
+
+def _whole_groups(q: torch.Tensor, KV: int) -> torch.Tensor:
+    """q (B, T, H, dh) as it can be grouped into (KV, H // KV): on a
+    DTensor its heads stay split over the mesh dims that split the KV
+    heads evenly (whole GQA groups a rank, as the flash wrapper keeps
+    them) and are gathered over the others, where DTensor could not
+    unflatten them (llama3-8b's 8 KV heads on 16); any other q as it
+    is."""
+    if not is_dtensor(q):
+        return q
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, n, want = q.device_mesh, 1, []
+    for j, p in enumerate(q.placements):
+        if p == Shard(2) and KV % (n * mesh.size(j)) == 0:
+            n *= mesh.size(j)
+        elif p == Shard(2):
+            p = Replicate()
+        want.append(p)
+    return q if want == list(q.placements) else q.redistribute(mesh, want)
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +248,9 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     Train attends as prefill does (the flash call, under autograd) and
     keeps no cache: ``new_cache`` is None."""
     a = cfg.attention
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = torch.einsum("bsd,dhk->bshk", x, for_compute(p["wq"], 1))
+    k = torch.einsum("bsd,dhk->bshk", x, for_compute(p["wk"], 1))
+    v = torch.einsum("bsd,dhk->bshk", x, for_compute(p["wv"], 1))
     if a.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -238,29 +298,28 @@ def attention_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             idx = torch.remainder(cur, Sbuf).long()     # ring cache
         else:
             idx = torch.clamp(cur, max=Sbuf - 1).long()
-        rows = torch.arange(k.shape[0], device=x.device)
         new_cache = {"k": kc, "v": vc, "len": cur + 1}
         if kv_int8:
             kq, k_sc = _kv_quantize(k)
             vq, v_sc = _kv_quantize(v)
-            kc[rows, idx] = kq[:, 0]
-            vc[rows, idx] = vq[:, 0]
-            cache["k_scale"][rows, idx] = k_sc[:, 0]
-            cache["v_scale"][rows, idx] = v_sc[:, 0]
+            _write_rows(kc, idx, kq[:, 0])
+            _write_rows(vc, idx, vq[:, 0])
+            _write_rows(cache["k_scale"], idx, k_sc[:, 0])
+            _write_rows(cache["v_scale"], idx, v_sc[:, 0])
             new_cache.update(k_scale=cache["k_scale"],
                              v_scale=cache["v_scale"])
             kd = _kv_dequantize(kc, cache["k_scale"], x.dtype)
             vd = _kv_dequantize(vc, cache["v_scale"], x.dtype)
         else:
-            kc[rows, idx] = k[:, 0]
-            vc[rows, idx] = v[:, 0]
+            _write_rows(kc, idx, k[:, 0])
+            _write_rows(vc, idx, v[:, 0])
             kd, vd = kc, vc
         eff = torch.clamp(cur + 1, max=Sbuf)
         o = decode_attention(q, kd, vd, eff, scale=a.softmax_scale,
                              logit_cap=a.logit_cap)
     else:
         raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", o, for_compute(p["wo"], 0))
     return out, new_cache
 
 
@@ -308,6 +367,7 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("bsd,df->bsf", x, p["w1"])
-    u = torch.einsum("bsd,df->bsf", x, p["w3"])
-    return torch.einsum("bsf,fd->bsd", act_fn(cfg.act)(g) * u, p["w2"])
+    g = torch.einsum("bsd,df->bsf", x, for_compute(p["w1"], 1))
+    u = torch.einsum("bsd,df->bsf", x, for_compute(p["w3"], 1))
+    return torch.einsum("bsf,fd->bsd", act_fn(cfg.act)(g) * u,
+                        for_compute(p["w2"], 0))

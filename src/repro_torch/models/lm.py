@@ -35,16 +35,60 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import tree_flatten, tree_unflatten
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import apply_blocks
-from repro_torch.sharding import (as_placed, constrain, full, placed_as,
-                                  scope)
+from repro_torch.sharding import (as_placed, constrain, full, is_dtensor,
+                                  placed_as, scope)
 
 
 def embed(cfg: ModelConfig, params, batch: Dict[str, Any]) -> torch.Tensor:
-    x = params["emb"][batch["tokens"].long()]
+    emb, tok = params["emb"], batch["tokens"].long()
+    x = _lookup(emb, tok) if is_dtensor(emb) else emb[tok]
     if cfg.vision_stub and batch.get("vision_embeds") is not None:
         x = torch.where(batch["vision_mask"][..., None],
                         batch["vision_embeds"].to(x.dtype), x)
     return x
+
+
+def _lookup(emb, tok):
+    """``emb[tok]`` for a DTensor table, on each rank's local tokens.
+    Where the rank's tokens are fewer than its vocab shard's rows (a
+    decode step), each rank looks up the tokens its rows hold (0
+    elsewhere) and the shards' partial sums add up over the vocab's
+    mesh dims; else the table is gathered whole (FSDP's all-gather) and
+    looked up locally, its gradient a partial sum over the mesh dims
+    that split the tokens.  DTensor's own strategies for the lookup
+    fail: the index's backward (an accumulating ``index_put``) on torch
+    2.11, ``F.embedding``'s masked partial on 2.13."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, p_tok = emb.device_mesh, list(tok.placements)
+    split = [j for j, p in enumerate(emb.placements) if p == Shard(0)]
+    coord, shard, n = mesh.get_coordinate(), 0, 1
+    for j in split:         # this rank's slice of the vocabulary, in order
+        shard, n = shard * mesh.size(j) + coord[j], n * mesh.size(j)
+    rows = emb.shape[0] // n
+    grad = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in p_tok]
+    if not split or tok.to_local().numel() >= rows:
+        return local_map(lambda e, t: e[t], out_placements=p_tok,
+                         in_placements=([Replicate()] * mesh.ndim, p_tok),
+                         in_grad_placements=(grad, p_tok),
+                         device_mesh=mesh, redistribute_inputs=True)(emb,
+                                                                     tok)
+
+    def pick(e, t):
+        at = t - shard * rows
+        mine = (at >= 0) & (at < rows)
+        got = e[torch.clamp(at, 0, rows - 1)]
+        return torch.where(mine[..., None], got, torch.zeros_like(got))
+
+    p_emb = [Shard(0) if j in split else Replicate()
+             for j in range(mesh.ndim)]
+    p_out = [Partial() if j in split else p for j, p in enumerate(p_tok)]
+    g_emb = [Shard(0) if j in split else g for j, g in enumerate(grad)]
+    return local_map(pick, out_placements=p_out,
+                     in_placements=(p_emb, p_tok),
+                     in_grad_placements=(g_emb, p_tok), device_mesh=mesh,
+                     redistribute_inputs=True)(emb, tok)
 
 
 def positions(cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
@@ -92,13 +136,7 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *, ctx=None
     with scope(ctx):
         logits, _, aux = forward(cfg, params, batch, mode="train", ctx=ctx)
         logits = logits.to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, batch["labels"].long()[..., None])
-        # on vocab-sharded logits DTensor's gather leaves a masked partial
-        # sum, which it cannot reduce once the index drops the last dim:
-        # reduce it first
-        ll = constrain(ll, ("batch", None, None), ctx)[..., 0]
-        nll = lse - ll
+        nll = logsumexp(logits) - label_logits(logits, batch["labels"])
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = mask.to(torch.float32)
@@ -107,6 +145,70 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *, ctx=None
         else:
             ce = torch.mean(nll)
         return ce + aux, {"ce": ce, "aux": aux}
+
+
+def logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last dim.  On DTensor logits it is
+    written out as ``jax.nn.logsumexp`` takes it, the max (no gradient
+    through it), then the log of the sum of exp, each reduction a
+    partial one over the vocab's mesh dims: DTensor's ``logsumexp``
+    gathers the whole vocabulary first (the float32 logits whole on
+    every rank)."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = _reduced(torch.amax(logits, dim=-1, keepdim=True)).detach()
+    return torch.log(_reduced(torch.sum(torch.exp(logits - m), dim=-1))) \
+        + m[..., 0]
+
+
+def _reduced(x):
+    """DTensor ``x`` with its partial reductions done (all-reduced to
+    ``Replicate``), the other placements kept: the loss's (B, S) terms
+    keep the batch placement, so their gradients reach the logits at
+    the logits' own placements (DTensor could reduce-scatter them over
+    the batch instead, and then re-shard the logits' gradient).  Any
+    other ``x`` as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+    pl = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return x if pl == list(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``, (B, S).  On DTensor logits it runs on
+    each rank's local shards, as a vocab-parallel cross entropy does: a
+    vocab shard gives the logits of the labels it holds and 0 elsewhere,
+    the shards' sum is a partial sum over the vocab's mesh dims, and the
+    backward scatters into the local shard alone.  DTensor's own
+    ``gather`` would differentiate into a zero tensor of the logits'
+    global shape on every rank (637 GB in float32 for train_4k's logits
+    on the production mesh)."""
+    idx = labels.long()[..., None]
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, idx)[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl, vocab = logits.device_mesh, list(logits.placements), \
+        Shard(logits.ndim - 1)
+    coord, shard = mesh.get_coordinate(), 0
+    for j, p in enumerate(pl):
+        if p == vocab:      # this rank's slice of the vocabulary, in order
+            shard = shard * mesh.size(j) + coord[j]
+    p_idx = [Replicate() if p == vocab else p for p in pl]
+    p_out = [Partial() if p == vocab else p for p in pl]
+
+    def pick(lg, ix):
+        n = lg.shape[-1]
+        at = ix - shard * n
+        mine = (at >= 0) & (at < n)
+        got = torch.gather(lg, -1, torch.clamp(at, 0, n - 1))
+        return torch.where(mine, got, torch.zeros_like(got))[..., 0]
+
+    return _reduced(local_map(pick, out_placements=p_out,
+                              in_placements=(pl, p_idx), device_mesh=mesh,
+                              redistribute_inputs=True)(logits, idx))
 
 
 def value_and_grad(cfg: ModelConfig, params, batch: Dict[str, Any], *,

@@ -51,7 +51,7 @@ from repro_torch.models.layers import (ParamDef, attention_apply,
                                        rms_norm)
 from repro_torch.models.rglru import (rglru_apply, rglru_defs,
                                       rglru_state_defs)
-from repro_torch.sharding import constrain, on_whole_values, scope
+from repro_torch.sharding import constrain, local, on_whole_values, scope
 
 
 def _map_defs(fn, defs):
@@ -267,7 +267,7 @@ def _write_into(cache: dict, new: dict) -> None:
     for k, v in new.items():
         if isinstance(v, dict):
             _write_into(cache[k], v)
-        elif cache[k].data_ptr() != v.data_ptr():
+        elif local(cache[k]).data_ptr() != local(v).data_ptr():
             cache[k].copy_(v)
 
 

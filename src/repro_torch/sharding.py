@@ -27,9 +27,9 @@ jax's ``PartitionSpec(("pod", "data"))``.  An entry in another order
 raises.
 
 ``ShardCtx.constrain`` redistributes a DTensor activation to the resolved
-placements, where the reference pins it with
-``with_sharding_constraint``; ``constrain(x, logical, None)`` returns
-``x`` unchanged (one device).  A sharded step runs under ``scope(ctx)``,
+placements, and its gradient in the backward, where the reference pins
+both with ``with_sharding_constraint``; ``constrain(x, logical, None)``
+returns ``x`` unchanged (one device).  A sharded step runs under ``scope(ctx)``,
 DTensor's ``implicit_replication``: the plain tensors the model makes
 from global shapes (RoPE tables, masks, zeros, the optimizer's schedule
 scalars) enter DTensor ops as replicated.
@@ -45,8 +45,28 @@ at these places, and nowhere else:
   thread's own and RoPE's backward would otherwise mix a plain tensor
   into a DTensor op on the autograd engine's thread; the remat unit
   enters the scope again for its recompute (``transformer.apply_blocks``);
-- the loss's label gather on vocab-sharded logits is reduced to the
-  batch placement before its last dim is indexed away (``lm.loss_fn``);
+- the loss's label logits are picked on each rank's vocab shard and
+  summed over the vocab's mesh dims (``lm.label_logits``): DTensor's
+  ``gather`` would differentiate into a zero tensor of the logits'
+  global shape;
+- the attention and MLP projections take their weights as a layer
+  computes with them (``for_compute``): the FSDP shards gathered, the
+  tensor-parallel split of heads or d_ff kept where the rules make one.
+  Where no mesh dim splits the heads (qwen2-0.5b's 14 on 16), DTensor
+  would split the projection's flattened heads x d_head output, which
+  it then cannot unflatten; for the MLP its own choice holds more at
+  the step's peak (``tests/test_torch_dryrun.py``'s hand count of the
+  reduced qwen2-0.5b sees the difference).  Decode attention groups
+  q's heads only over the mesh dims that split the KV heads
+  (``layers._whole_groups``);
+- the embedding lookup runs on each rank's tokens (``lm._lookup``),
+  against its vocab shard where it has fewer tokens than the shard has
+  rows, else against the table gathered whole: DTensor's strategies for
+  it fail (the index's backward on torch 2.11, ``F.embedding``'s masked
+  partial on 2.13);
+- a decode step writes its new K/V row into each rank's shard of a
+  cache sharded over batch and positions (``layers._write_rows``):
+  DTensor has no strategy for that indexed write;
 - RWKV's time mix (its head split of a sharded width, the chunked WKV)
   and the global MoE (its sort and scatter over all tokens) run on
   whole values on every rank (``on_whole_values``;
@@ -273,10 +293,27 @@ class ShardCtx:
         if not is_dtensor(x):
             raise TypeError("ShardCtx.constrain takes a DTensor: distribute "
                             "the params and batch first (distribute_tree)")
-        want = self.placements(x.shape, logical)
-        if tuple(x.placements) == want:
-            return x
-        return x.redistribute(self.mesh, want)
+        return _Pin.apply(x, self.mesh, self.placements(x.shape, logical))
+
+
+class _Pin(torch.autograd.Function):
+    """A DTensor redistributed to ``want``, and its gradient too, as
+    ``with_sharding_constraint`` pins a cotangent: otherwise a gradient
+    keeps the placements autograd gave it (a partial sum over the model
+    axis from the MLP's backward), and every product behind it follows
+    that placement."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return x.view_as(x) if tuple(x.placements) == want else \
+            x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(ctx.mesh, ctx.want)
+        return g, None, None
 
 
 _scopes = threading.local()
@@ -300,6 +337,20 @@ def scope(ctx: Optional[ShardCtx]):
             yield
     finally:
         _scopes.on = False
+
+
+def for_compute(w, *keep: int):
+    """Weight ``w`` as a layer computes with it under a mesh: its shards
+    along dims ``keep`` (tensor parallel) kept, every other placement
+    gathered (FSDP's all-gather before use; its backward reduce-scatters
+    the gradient); ``w`` itself off a mesh (module note)."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    want = [p if isinstance(p, Shard) and p.dim in keep else Replicate()
+            for p in w.placements]
+    return w if want == list(w.placements) else \
+        w.redistribute(w.device_mesh, want)
 
 
 def constrain(x, logical, ctx: Optional[ShardCtx]):
@@ -387,6 +438,11 @@ def placed_as(t, ref):
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(t, ref.device_mesh, ref.placements,
                              src_data_rank=None)
+
+
+def local(x):
+    """A DTensor's local shard; any other value itself."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 def full(x):

@@ -277,9 +277,14 @@ def test_cli_wants_a_card_by_default():
 # the e2e benchmark twin and the quickstart example
 # ---------------------------------------------------------------------------
 
-def test_e2e_step_rows_are_the_reference_rows(capsys):
+def test_e2e_step_rows_are_the_reference_rows(capsys, tmp_path,
+                                             monkeypatch):
     from benchmarks import e2e_step as ref_bench
     from repro_torch.benchmarks import e2e_step as port_bench
+    # no dry-run artifacts on either side (the port's dry run writes its
+    # own folder; tests/test_torch_dryrun.py holds its roofline rows)
+    monkeypatch.setattr(ref_bench, "ART", str(tmp_path / "ref"))
+    monkeypatch.setattr(port_bench, "ART_DIR", str(tmp_path / "port"))
     ref_bench.run(quick=True)
     want = [l.split(",")[0] for l in capsys.readouterr().out.splitlines()
             if l.startswith(("e2e_", "roofline_"))]
