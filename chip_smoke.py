@@ -210,6 +210,13 @@ and it stops at the first failing phase with a non-zero exit:
    category, argument + temp and roofline terms (``[cost]`` lines), the
    train cell held to its hand counts: FLOPs within 10% of 1.18e14 a
    rank, argument 46,339,972 B, argument + temp within 2x of 20 GB;
+   then the dry run's readers (ROADMAP A.9) over those records in a
+   temporary folder, with a skipped ``long_500k`` record and a tagged
+   copy: ``launch/recompute`` gives back the dry run's own
+   ``modeled_bytes`` and ``roofline``, exactly, and ``launch/report``'s
+   tables (printed on ``[cost] report`` lines) have one ok row a cell,
+   its ``roofline_fraction`` at 3 places, the SKIP row, no row of the
+   tagged copy, and the H100 constants on the hardware line;
 14. bench phase (the same cut of depth; a ``[time]`` line after each
    module): ``repro_torch.benchmarks.run --quick`` on the card (the
    paper's channel, contention, completion, RDMA-analogue, Table 1
@@ -2526,8 +2533,10 @@ def cost_phase(card: str) -> dict:
             child.kill()
             child.wait()
     assert child.returncode == 0, err[-3000:]
+    records = []
     for cell in json.loads(out.strip().splitlines()[-1]):
         rec = cell["record"]
+        records.append(rec)
         assert rec["status"] == "ok", rec.get("traceback", rec)
         f, r = rec["full"], rec["roofline"]
         mem = f["memory"]
@@ -2563,7 +2572,82 @@ def cost_phase(card: str) -> dict:
             assert mem["argument_size_in_bytes"] == DRYRUN_ARGUMENT, mem
         else:
             assert f["flops"] > 0 and f["collective_bytes_per_device"] > 0
+    cost_readers(records)
     return host
+
+
+def cost_readers(records: list) -> None:
+    """The dry run's readers (ROADMAP A.9) over the cost phase's records,
+    written into a temporary folder as ``single/<arch>__<shape>.json``
+    with one skipped record (``run_cell``'s shape check alone) and one
+    tagged copy: ``launch/recompute`` re-derives every ok record's
+    ``modeled_bytes`` and ``roofline``, equal to what the dry run wrote;
+    ``launch/report`` writes its document there, with one ok row a cell
+    in §Dry-run and in §Roofline (the record's ``roofline_fraction`` at
+    3 places), the SKIP row, no row of the tagged copy, and the H100
+    constants on the hardware line.  The tables print on ``[cost]``
+    lines."""
+    import io
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import recompute, report
+    skipped = D.run_cell("qwen2-0.5b", "long_500k", "single")
+    assert skipped["status"] == "skipped", skipped
+    tagged = json.loads(json.dumps(records[0]))
+    tagged["full"]["compile_s"] = 12345.6
+    saved = (recompute.ART, report.ART, report.PERF, report.OUT)
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, "single"))
+        files = {f"{r['arch']}__{r['shape']}": r for r in records}
+        files["qwen2-0.5b__long_500k"] = skipped
+        files[f"{records[0]['arch']}__{records[0]['shape']}__tagged"] = tagged
+        for name, rec in files.items():
+            with open(os.path.join(d, "single", f"{name}.json"), "w") as f:
+                json.dump(rec, f, indent=1)
+        out = io.StringIO()
+        try:
+            recompute.ART = report.ART = d
+            report.PERF = os.path.join(d, "perf_log.json")
+            report.OUT = os.path.join(d, "EXPERIMENTS.md")
+            with contextlib.redirect_stdout(out):
+                recompute.main()
+                report.main()
+            again = {}
+            for r in records:
+                path = os.path.join(d, "single",
+                                    f"{r['arch']}__{r['shape']}.json")
+                with open(path) as f:
+                    again[(r["arch"], r["shape"])] = json.load(f)
+            with open(report.OUT) as f:
+                doc = f.read()
+            cells = report.load("single")
+            dry = report.dryrun_table(cells, "single")
+            roof = report.roofline_table(cells)
+        finally:
+            recompute.ART, report.ART, report.PERF, report.OUT = saved
+    said = out.getvalue().splitlines()
+    print(f"[cost] recompute: {said[0]}; report: "
+          f"{said[1].split(' (')[-1].rstrip(')')}", flush=True)
+    for line in (dry + "\n" + roof).splitlines():
+        print(f"[cost] report {line}", flush=True)
+    assert said[0] == f"recomputed {len(records) + 1} artifacts", said
+    for r in records:
+        key = (r["arch"], r["shape"])
+        assert again[key]["modeled_bytes"] == r["modeled_bytes"], key
+        assert again[key]["roofline"] == r["roofline"], key
+        frac = f"**{r['roofline']['roofline_fraction']:.3f}**"
+        assert sum(line.startswith(f"| {key[0]} | {key[1]} | ok |")
+                   for line in dry.splitlines()) == 1, dry
+        assert [line for line in roof.splitlines()
+                if line.startswith(f"| {key[0]} | {key[1]} |")
+                and line.endswith(f"| {frac} |")] != [], roof
+    assert len(roof.splitlines()) == 2 + len(records), roof
+    assert "| qwen2-0.5b | long_500k | SKIP |" in dry, dry
+    assert "12345.6" not in doc and dry in doc and roof in doc
+    hw = next(p for p in doc.split("\n\n") if "Hardware constants" in p)
+    assert all(report.eng(c) in hw
+               for c in (D.PEAK_FLOPS, D.HBM_BW, D.LINK_BW)), hw
+    hw = " ".join(hw[hw.index("Hardware constants"):].split())
+    print(f"[cost] report {hw}", flush=True)
 
 
 T0 = time.perf_counter()

@@ -51,7 +51,8 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.core.offload", "repro_torch.runtime.elastic",
             "repro_torch.sharding", "repro_torch.launch.mesh",
             "repro_torch.launch.specs", "repro_torch.launch.traffic",
-            "repro_torch.launch.hlo", "repro_torch.launch.dryrun"} | {
+            "repro_torch.launch.hlo", "repro_torch.launch.dryrun",
+            "repro_torch.launch.recompute", "repro_torch.launch.report"} | {
         f"repro_torch.benchmarks.{m}" for m in BENCH_MODULES} | {
         f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = ("import sys, importlib\n"
