@@ -162,8 +162,8 @@ def storage_bytes(tree) -> Dict[int, int]:
 class Trace(TorchDispatchMode):
     """Counts one rank's part of a step (module note).  Enter it around
     the step, after ``arguments``; read ``flops``, ``bytes_accessed``,
-    ``collectives``, ``chars``, ``ops``, ``peak`` and ``live_at_peak``
-    after it."""
+    ``collectives``, ``collective_shapes``, ``chars``, ``ops``, ``peak``
+    and ``live_at_peak`` after it."""
 
     def __init__(self):
         super().__init__()
@@ -171,6 +171,8 @@ class Trace(TorchDispatchMode):
         self.flops_by_op: Dict[str, int] = defaultdict(int)
         self.bytes_accessed = 0
         self.collectives: Dict[str, Dict[str, float]] = {}
+        # (category, shape) of each collective operand, in the order run
+        self.collective_shapes: List[Tuple[str, Tuple[int, ...]]] = []
         self.chars = 0
         self.ops = 0
         self.argument = 0
@@ -272,8 +274,10 @@ class Trace(TorchDispatchMode):
             c = self.collectives.setdefault(
                 cat, {"count": 0, "operand_bytes": 0.0})
             c["count"] += 1
-            c["operand_bytes"] += float(sum(map(_nbytes,
-                                                _tensors(args[0]))))
+            operands = _tensors(args[0])
+            c["operand_bytes"] += float(sum(map(_nbytes, operands)))
+            self.collective_shapes += [(cat, tuple(t.shape))
+                                       for t in operands]
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             n = int(formula(*args, **kwargs, out_val=out))

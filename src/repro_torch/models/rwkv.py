@@ -13,7 +13,10 @@ time chunks of ``c = min(chunk, T)`` tokens (``T % c == 0``, else
 ``ValueError``), each parallel within the chunk (an O(c^2) product per
 head) with the state carried across chunks; decode (``T == 1``) is the
 one-step recurrence.  No TPU kernel exists for RWKV, so this is plain
-PyTorch in float32, on every device.
+PyTorch in float32, on every device.  Under a mesh the time mix runs on
+each rank's batch shard and local heads (``_on_local_heads``), since
+DTensor has no strategy for its head split of a sharded width or its
+chunked WKV.
 
 The state tree (C.3 in ROADMAP.md): a layer's cache is
 ``{"mix": {"S", "tm_x"}, "cm_x"}``, the tree the reference's prefill and
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef, group_norm_heads
+from repro_torch.sharding import is_dtensor
 
 
 def rwkv_defs(cfg: ModelConfig) -> dict:
@@ -135,10 +139,16 @@ def _wkv_chunk(S0, r, k, v, w, u):
 def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                   mode: str, state: Optional[dict], chunk: int = 128):
     """Returns (out, new_state {"S", "tm_x"}); the state is None in
-    train."""
-    B, T, D = x.shape
+    train.  On DTensors it runs on each rank's local heads
+    (``_on_local_heads``); the head count is the projections' width over
+    ``head_size``, so the same code runs on the whole width or a rank's
+    heads."""
+    if is_dtensor(x):
+        return _on_local_heads(cfg, p, x, mode=mode, state=state,
+                               chunk=chunk)
+    B, T, _ = x.shape
     hs = cfg.rwkv.head_size
-    H = D // hs
+    H = p["wr"].shape[1] // hs
 
     sx = _shifted(x, mode, None if state is None else state["tm_x"]) - x
     xr, xk, xv, xw, xg = _ddlerp(x, sx, p)
@@ -175,11 +185,105 @@ def rwkv_time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     y = group_norm_heads(y.to(x.dtype), p["ln_s"].reshape(H, hs),
                          p["ln_b"].reshape(H, hs), cfg.norm_eps)
-    y = y.reshape(B, T, D) * g
+    y = y.reshape(B, T, H * hs) * g
     out = torch.einsum("btd,de->bte", y, p["wo"])
     if mode == "train":
         return out, None
     return out, {"S": S1, "tm_x": x[:, -1]}
+
+
+# the time mix's leaves; the channel mix's (``cmu_k``, ``cmu_r``, ``ck``,
+# ``cv``, ``cr``) stay out of its local map.  Each split leaf with the
+# dim that holds its heads: the four input projections' output, ``wo``'s
+# input, and the per-channel leaves
+_HEAD_DIM = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "w0": 0, "wb": 1,
+             "u": 0, "ln_s": 0, "ln_b": 0}
+# the low-rank leaves, whole on every rank: the ddlerp's and the decay
+# lora's input matrix
+_WHOLE = ("mu_x", "mu_rkvwg", "mix_a", "mix_b", "wa")
+_TIME_MIX = tuple(sorted(_HEAD_DIM)) + _WHOLE
+
+
+def _on_local_heads(cfg: ModelConfig, p: dict, x, *, mode: str,
+                    state: Optional[dict], chunk: int):
+    """``rwkv_time_mix`` of DTensors on each rank's local heads, through
+    ``local_map``.  Each mesh dim takes one role:
+
+    - "batch", where ``x`` is split on its batch: ``x`` and the state
+      keep their batch shard; every weight enters whole (FSDP's
+      ``d_model`` shard gathered) and its gradient leaves as a partial
+      sum;
+    - "heads", where ``wr`` is split on its output and the heads split
+      evenly over it (and the "heads" dims before it): ``wr``, ``wk``,
+      ``wv`` and ``wg`` keep their output shard and ``wo`` its input
+      shard; the per-channel leaves (``w0``, ``wb``'s output, ``u``,
+      ``ln_s``, ``ln_b``) and ``S`` enter sliced to the local heads,
+      which needs no collective; ``x``, ``tm_x`` and the low-rank leaves
+      (``_WHOLE``) enter whole and their gradients leave as partial
+      sums.  The output leaves as a partial sum of the local heads'
+      ``wo`` products, which the block's pin reduces;
+    - otherwise (a split sequence, a width that does not split by
+      heads) everything enters whole and each rank computes the same.
+
+    The new ``S`` leaves gathered over the heads' mesh dims, split over
+    the batch alone: the reference's spec ("batch", None, None, None),
+    so the cache tree and its placements stay the reference's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    H = cfg.d_model // cfg.rwkv.head_size
+    roles, heads = [], 1
+    for j, (px, pw) in enumerate(zip(x.placements, p["wr"].placements)):
+        n = x.device_mesh.size(j)
+        if px == Shard(0):
+            roles.append("batch")
+        elif pw == Shard(1) and H % (heads * n) == 0:
+            heads *= n
+            roles.append("heads")
+        else:
+            roles.append(None)
+
+    def pl(batch=None, heads=None, grad=False):
+        """Placements: ``batch`` on "batch" dims, ``heads`` on "heads"
+        dims (a gradient: Partial where the value entered whole)."""
+        out = []
+        for r in roles:
+            want = {"batch": batch, "heads": heads}.get(r)
+            if want is None:
+                want = Partial() if grad and r is not None else Replicate()
+            out.append(want)
+        return tuple(out)
+
+    split = [Shard(_HEAD_DIM[k]) if k in _HEAD_DIM else None
+             for k in _TIME_MIX]
+    x_in, x_grad = pl(batch=Shard(0)), pl(batch=Shard(0), grad=True)
+    s_pl = pl(batch=Shard(0), heads=Shard(1))
+    ins = [x_in] + [pl(heads=d) for d in split]
+    grads = [x_grad] + [pl(heads=d, grad=True) for d in split]
+    args = [x] + [p[k] for k in _TIME_MIX]
+    if state is not None:
+        ins += [s_pl, x_in]
+        grads += [s_pl, x_grad]
+        args += [state["S"], state["tm_x"]]
+    outs = (pl(batch=Shard(0), heads=Partial()),)
+    if mode != "train":
+        outs += (s_pl, x_in)
+
+    def fn(x, *rest):
+        st = None
+        if len(rest) > len(_TIME_MIX):
+            st = {"S": rest[-2], "tm_x": rest[-1]}
+        out, new = rwkv_time_mix(cfg, dict(zip(_TIME_MIX, rest)), x,
+                                 mode=mode, state=st, chunk=chunk)
+        return (out,) if new is None else (out, new["S"], new["tm_x"])
+
+    got = local_map(fn, out_placements=outs, in_placements=tuple(ins),
+                    in_grad_placements=tuple(grads),
+                    device_mesh=x.device_mesh,
+                    redistribute_inputs=True)(*args)
+    if mode == "train":
+        return got[0], None
+    out, S1, tm_x = got
+    return out, {"S": S1.redistribute(S1.device_mesh, x_in), "tm_x": tm_x}
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,

@@ -29,9 +29,12 @@ unstacked tail is not rematerialised, as in the reference.
 ``ctx`` (a ``repro_torch.sharding.ShardCtx``) is taken where the
 reference takes it: after each block of a pattern group the residual
 stream is pinned to ("batch", None, None), and the MoE FFN pins its
-dispatch buffers.  ``tree_abstract`` and ``tree_logical`` are the
-abstract trees of the mesh tooling: meta-device tensors of each def's
-shape and dtype, and each def's logical axes.
+dispatch buffers.  The port also pins the residual after each block's
+mixer and after each tail block, where the reference does not
+(``block_apply``, ``apply_blocks``; ROADMAP C.6).  ``tree_abstract``
+and ``tree_logical`` are the abstract trees of the mesh tooling:
+meta-device tensors of each def's shape and dtype, and each def's
+logical axes.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from repro_torch.models.layers import (ParamDef, attention_apply,
                                        rms_norm)
 from repro_torch.models.rglru import (rglru_apply, rglru_defs,
                                       rglru_state_defs)
-from repro_torch.sharding import constrain, local, on_whole_values, scope
+from repro_torch.sharding import constrain, local, scope
 
 
 def _map_defs(fn, defs):
@@ -97,12 +100,13 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
     aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rwkv":
-        # its head split and chunked WKV have no DTensor strategy
-        o, tm = on_whole_values(
-            lambda pm, h, st: rwkv_mod.rwkv_time_mix(cfg, pm, h, mode=mode,
-                                                     state=st),
-            p["mix"], h, None if cache is None else cache["mix"])
-        x = x + o
+        # under a mesh on each rank's local heads, its output a partial
+        # sum over the heads' mesh dims, which the pin (C.6, below)
+        # reduces
+        o, tm = rwkv_mod.rwkv_time_mix(
+            cfg, p["mix"], h, mode=mode,
+            state=None if cache is None else cache["mix"])
+        x = constrain(x + o, ("batch", None, None), ctx)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         o, cm_x = rwkv_mod.rwkv_channel_mix(cfg, p["mix"], h, mode=mode,
                                             state=cache)
@@ -117,7 +121,13 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
                              state=None if cache is None else cache["rec"])
     else:
         raise ValueError(kind)
-    x = x + o
+    # pinned where the reference pins only after the block: DTensor
+    # propagates placements op by op and does not pick the cheapest
+    # layout as GSPMD does, so an unpinned residual stays split on
+    # d_model over "model" after a heads-split attention, and the MLP
+    # behind it contracts that split into a whole-d_ff partial sum on
+    # every rank (ROADMAP C.6)
+    x = constrain(x + o, ("batch", None, None), ctx)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "attn" and cfg.moe is not None:
         o, aux = moe_mod.moe_apply(cfg, p["ffn"], h, ctx=ctx)
@@ -329,6 +339,11 @@ def apply_blocks(cfg: ModelConfig, params, x, *, mode: str, pos,
         t = f"t{i}"
         x, aux = block(cfg.block_pattern[i], params["tail"][t], x,
                        None if tcaches is None else tcaches[t])
+        # pinned as a group's blocks are, where the reference leaves the
+        # tail to GSPMD: a tail block's output is a partial sum over
+        # "model", and DTensor then feeds the unembedding the global
+        # batch (recurrentgemma-2b's two tail layers, ROADMAP C.6)
+        x = constrain(x, ("batch", None, None), ctx)
         if aux is not None:
             aux_total = aux_total + aux
     return x, caches, aux_total

@@ -40,6 +40,16 @@ at these places, and nowhere else:
 - the flash and rg_lru kernels take ``data_ptr``s: they run on each
   rank's local shards through ``local_map``
   (``kernels/flash_attention.py``, ``kernels/rg_lru.py``);
+- RWKV's time mix (its head split of a sharded width, the chunked WKV)
+  runs on each rank's batch shard and local heads through
+  ``local_map`` (``models/rwkv.py``, ``_on_local_heads``), its output a
+  partial sum over the heads' mesh dims that the block's pin reduces;
+- a block pins its residual after its mixer as well as after the
+  block, a tail block too (``transformer.block_apply``,
+  ``apply_blocks``): DTensor propagates placements op by op, and an
+  unpinned residual stays split on d_model behind a heads-split
+  attention, so the MLP computes the whole d_ff on every rank (ROADMAP
+  C.6);
 - the default positions are made a DTensor placed as the tokens
   (``lm.positions``, ``placed_as``), since the scope's flag is the
   thread's own and RoPE's backward would otherwise mix a plain tensor
@@ -67,11 +77,10 @@ at these places, and nowhere else:
 - a decode step writes its new K/V row into each rank's shard of a
   cache sharded over batch and positions (``layers._write_rows``):
   DTensor has no strategy for that indexed write;
-- RWKV's time mix (its head split of a sharded width, the chunked WKV)
-  and the global MoE (its sort and scatter over all tokens) run on
-  whole values on every rank (``on_whole_values``;
-  ``transformer.block_apply``, ``moe.moe_apply``), as does the grouped
-  MoE's ``searchsorted``, which has no sharding strategy;
+- the global MoE (its sort and scatter over all tokens) runs on whole
+  values on every rank (``on_whole_values``, ``moe.moe_apply``), as
+  does the grouped MoE's ``searchsorted``, which has no sharding
+  strategy;
 - a gradient comes back with the placements autograd gave it (a
   partial sum, a shard of another dim) and is redistributed to its
   param's (``as_placed`` in ``lm.value_and_grad``), so the update is

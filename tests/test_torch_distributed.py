@@ -129,7 +129,7 @@ from repro_torch.interop import tree_leaves
 from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.launch.specs import train_specs
 from repro_torch.launch.train import build_state
-from repro_torch.models import lm
+from repro_torch.models import lm, transformer as T
 from repro_torch.optim.adamw import AdamW
 from repro_torch.sharding import TRAIN_RULES, ShardCtx, distribute_tree, full
 
@@ -146,14 +146,27 @@ for arch, extra in (("recurrentgemma-2b", {"remat": "block"}),
                               dtype=torch.int32) for k in ("tokens", "labels")}
     state = build_state(cfg, opt, 0, "cpu")
     cell, _ = train_specs(cfg, ShapeCfg("t", 32, 8, "train"), mesh, opt)
-    new, m = lm.make_train_step(cfg, opt, ctx=ShardCtx(mesh, TRAIN_RULES))(
-        distribute_tree(state, cell.shardings[0]),
-        distribute_tree(batch, cell.shardings[1]))
+    ctx = ShardCtx(mesh, TRAIN_RULES)
+    state_d = distribute_tree(state, cell.shardings[0])
+    batch_d = distribute_tree(batch, cell.shardings[1])
+    new, m = lm.make_train_step(cfg, opt, ctx=ctx)(state_d, batch_d)
     plain, pm = lm.make_train_step(cfg, opt)(state, batch)
+    # each leaf's gradient in float64, where the sharded route's
+    # reordered sums leave at most ~5e-6 of a leaf's largest entry (in
+    # float32 they leave up to ~5e-4 on recurrentgemma, 8e-5 on RWKV)
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    params = T.tree_init(T.param_defs(cfg), cfg, 0, "cpu")
+    grads = lm.value_and_grad(
+        cfg, distribute_tree(params, cell.shardings[0]["params"]),
+        batch_d, ctx=ctx)[1]
+    want = lm.value_and_grad(cfg, params, batch)[1]
     out[arch + "".join(f"-{v}" for v in extra.values())] = {
         "dloss": abs(float(m["loss"]) - float(pm["loss"])),
         "dparam": max(float((full(a) - b).abs().max()) for a, b in zip(
-            tree_leaves(new["params"]), tree_leaves(plain["params"])))}
+            tree_leaves(new["params"]), tree_leaves(plain["params"]))),
+        "grad_norm": [float(m["grad_norm"]), float(pm["grad_norm"])],
+        "dgrad": [[float((full(a) - b).abs().max()), float(b.abs().max())]
+                  for a, b in zip(tree_leaves(grads), tree_leaves(want))]}
 done(out)
 """
 
@@ -162,13 +175,184 @@ def test_sharded_families_match_their_plain_step(tmp_path):
     """The other block kinds on a (2, 2) gloo mesh, at smoke size in
     float32, against the port's own one-device step: the hybrid under
     remat (rg_lru on the width's shards, flash with its heads
-    replicated since its one KV head cannot split), RWKV's time mix and
-    the global MoE on whole values, the grouped MoE with its
-    constraints."""
+    replicated since its one KV head cannot split), RWKV's time mix on
+    each rank's local heads (4 heads of 16, 2 a rank), the global MoE
+    on whole values, the grouped MoE with its constraints.  Besides
+    the step's loss and params, the step's grad norm is within 1e-4
+    relative, and every leaf's gradient (``lm.value_and_grad``, in
+    float64) within 2e-5 of its largest entry: the first AdamW step
+    moves a param by about lr x warm-up = 1e-5 whatever its gradient,
+    so dparam alone would not see a gradient that lost a rank's partial
+    sum."""
     out = run_ranks(FAMILIES_CHILD, 4, tmp_path)
     assert len(out) == 4
     for name, d in out.items():
         assert d["dloss"] < DLOSS and d["dparam"] < DPARAM, (name, d)
+        assert math.isclose(*d["grad_norm"], rel_tol=1e-4), (name, d)
+        for i, (err, scale) in enumerate(d["dgrad"]):
+            assert err <= 2e-5 * scale, (name, i, err, scale)
+
+
+RWKV_SERVE_CHILD = r"""
+import dataclasses
+import numpy as np
+from repro_torch.configs import ShapeCfg, get_config, reduce_for_smoke
+from repro_torch.interop import tree_map
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.specs import serve_specs
+from repro_torch.models import lm, rwkv as R, transformer as T
+from repro_torch.sharding import (SERVE_RULES, ShardCtx, distribute_tree,
+                                  full, is_dtensor)
+
+# the widths each call of the time mix on plain tensors computes with
+widths = []
+whole = R.rwkv_time_mix
+
+
+def spy(cfg, p, x, **kw):
+    if not is_dtensor(x):
+        widths.append(list(p["wr"].shape))
+    return whole(cfg, p, x, **kw)
+
+
+R.rwkv_time_mix = spy
+cfg = dataclasses.replace(reduce_for_smoke(get_config("rwkv6-1.6b")),
+                          dtype="float32")
+B, P = 4, 32
+params = T.tree_init(T.param_defs(cfg), cfg, 0, "cpu")
+prompt = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab, (B, P)).astype(np.int32))
+mesh = make_dev_mesh(2, 2, device_type="cpu")
+ctx = ShardCtx(mesh, SERVE_RULES)
+specs = {k: serve_specs(cfg, ShapeCfg(k, P, B, k), mesh, k)
+         for k in ("prefill", "decode")}
+p_d = distribute_tree(params, specs["prefill"].shardings[0],
+                      src_data_rank=None)
+caches = T.init_cache(cfg, B, P, "cpu")
+c_d = distribute_tree(tree_map(lambda t: t.clone(), caches),
+                      specs["prefill"].shardings[2], src_data_rank=None)
+out = {}
+tok = prompt
+for kind in ("prefill", "decode"):
+    make = lm.make_prefill_step if kind == "prefill" else lm.make_decode_step
+    caches, want = make(cfg)(params, {"tokens": tok}, caches)
+    b_d = distribute_tree({"tokens": tok}, specs[kind].shardings[1],
+                          src_data_rank=None)
+    del widths[:]
+    c_d, got = make(cfg, ctx=ctx)(p_d, b_d, c_d)
+    row = {"widths": list(widths),
+           "logits": [float((full(got) - want).abs().max()),
+                      float(want.abs().max())]}
+    for leaf in ("S", "tm_x"):
+        g, w = c_d["groups"]["b0"]["mix"][leaf], caches["groups"]["b0"]["mix"][leaf]
+        row[leaf] = [float((full(g) - w).abs().max()), float(w.abs().max()),
+                     [str(p) for p in g.placements]]
+    out[kind] = row
+    tok = lm.greedy_sample(want)[:, None]
+done(out)
+"""
+
+
+def test_sharded_rwkv_prefill_and_decode_match_the_plain_steps(tmp_path):
+    """rwkv6-1.6b at smoke size (float32, 4 heads of 16) on a (2, 2)
+    gloo mesh under ``SERVE_RULES``: a 32-token prefill of 4 prompts,
+    then one decode step, against the plain steps.  The time mix runs
+    on each rank's two local heads (``wr`` 64 x 32 a rank); the logits,
+    the state ``S`` and the last token ``tm_x`` agree within 2e-5 of the
+    largest entry (float32, as ``tests/test_kernels.py``), and ``S``
+    keeps the reference's spec, split over batch alone."""
+    out = run_ranks(RWKV_SERVE_CHILD, 4, tmp_path)
+    for kind in ("prefill", "decode"):
+        row = out[kind]
+        assert row["widths"] == [[64, 32]] * 2, (kind, row)  # 2 layers
+        for key in ("logits", "S", "tm_x"):
+            err, scale = row[key][:2]
+            assert err <= 2e-5 * scale, (kind, key, row)
+        assert row["S"][2] == ["S(1)", "R"], row     # (layers, batch, ...)
+
+
+TIME_MIX_CHILD = r"""
+import json
+import torch
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.hlo import Trace
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.models import rwkv as R, transformer as T
+from repro_torch.sharding import (TRAIN_RULES, ShardCtx, constrain,
+                                  on_whole_values, scope, tree_shardings)
+
+
+cfg = reduce_for_smoke(get_config("rwkv6-1.6b"))
+B, S, Dm = 8, 32, cfg.d_model
+out = {}
+with D.fake_group(8):
+    mesh = make_dev_mesh(4, 2)
+    ctx = ShardCtx(mesh, TRAIN_RULES)
+    defs = R.rwkv_defs(cfg)
+    ab = T.tree_abstract(defs, cfg)
+    p = D.on_meta(ab, tree_shardings(ab, T.tree_logical(defs), mesh,
+                                     TRAIN_RULES))
+    h = D.on_meta({"h": torch.empty(B, S, Dm, dtype=torch.bfloat16,
+                                    device="meta")},
+                  {"h": (mesh, ctx.placements((B, S, Dm),
+                                              ("batch", None, None)))})["h"]
+    leaves = [h] + [p[k] for k in R._TIME_MIX]
+    for t in leaves:
+        t.requires_grad_(True)
+    routes = {
+        "whole": lambda: on_whole_values(
+            lambda pm, x: R.rwkv_time_mix(cfg, pm, x, mode="train",
+                                          state=None), p, h),
+        "local": lambda: R.rwkv_time_mix(cfg, p, h, mode="train",
+                                         state=None)}
+    for name, route in routes.items():
+        tr = Trace()
+        tr.arguments(p, h)
+        with tr, scope(ctx):
+            o, _ = route()
+            y = constrain(h + o, ("batch", None, None), ctx)
+            torch.autograd.grad(y.float().sum(), leaves, allow_unused=True)
+        out[name] = {"flops": tr.flops,
+                     "gathers": [s for c, s in tr.collective_shapes
+                                 if c == "all-gather"]}
+# the low-rank ddlerp and the decay lora's first product, whole-D on a
+# rank's batch: what every rank of "model" computes alike
+x = torch.empty(B // 4, S, Dm, dtype=torch.bfloat16, device="meta",
+                requires_grad=True)
+pw = {k: torch.empty(p[k].shape, dtype=p[k].dtype, device="meta",
+                     requires_grad=True) for k in R._WHOLE}
+tr = Trace()
+with tr:
+    mixed = R._ddlerp(x, x, pw)
+    low = torch.tanh(mixed[3] @ pw["wa"])
+    torch.autograd.grad(mixed.float().sum() + low.float().sum(),
+                        [x] + list(pw.values()))
+out["ddlerp"] = tr.flops
+print(json.dumps(out))
+"""
+
+
+def test_time_mix_on_local_heads_costs_a_ranks_share():
+    """RWKV's time mix and its backward, traced for rank 0 of a fake
+    (4, 2) group under ``TRAIN_RULES`` (rwkv6-1.6b at smoke size, 8 x 32
+    tokens, 4 heads over "model"), on whole values (``on_whole_values``)
+    and on the local heads: the local route's FLOPs are at most the
+    whole-value route's over the 8 ranks, plus the low-rank products
+    every rank of "model" repeats (so within 1/n_model of it too); and it
+    all-gathers no (batch, seq)-sized activation, where the whole-value
+    route gathers the input's batch over "data"."""
+    res = subprocess.run([sys.executable, "-c", TIME_MIX_CHILD],
+                         env=dict(os.environ, PYTHONPATH=SRC,
+                                  OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    whole, local, ddlerp = out["whole"], out["local"], out["ddlerp"]
+    assert 0 < local["flops"] <= whole["flops"] / 8 + ddlerp, out
+    activation = [2, 32]            # (local batch, seq)
+    assert any(s[:2] == activation for s in whole["gathers"]), whole
+    assert not any(s[:2] == activation for s in local["gathers"]), local
 
 
 ELASTIC_SAVE = r"""

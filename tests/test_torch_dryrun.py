@@ -77,6 +77,76 @@ def test_tiny_dryrun_traces_and_counts_collectives():
     assert out["flops"] > 0 and out["arg_bytes"] > 0
 
 
+C6 = r"""
+import dataclasses, json
+from repro_torch.configs import get_config, reduce_for_smoke, SHAPES
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.hlo import Trace
+from repro_torch.launch.mesh import make_dev_mesh
+
+# d_ff 192: neither it nor its shard over "model" (96) is d_model (64)
+cfg = dataclasses.replace(reduce_for_smoke(get_config("llama3-8b")),
+                          d_ff=192)
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=48, global_batch=8)
+with D.fake_group(8):
+    step, args = D._build(cfg, shape, make_dev_mesh(4, 2), "train")
+    tr = Trace()
+    tr.arguments(args)
+    with tr:
+        step(*args)
+print(json.dumps({"log": tr.collective_shapes,
+                  "heads": cfg.attention.n_heads}))
+"""
+
+
+def test_heads_split_block_moves_no_mlp_hidden():
+    """ROADMAP C.6: a sharded train step of llama3-8b at smoke size (4
+    heads, d_model 64, d_ff 192) on a fake (4, 2) group, 8 x 48 tokens,
+    its heads split over "model": no collective's operand is a (batch,
+    seq, d_ff) activation, at the global or local batch, whole or
+    sharded d_ff.  The residual after attention is pinned to ("batch",
+    None, None); the parent's unpinned block left it split on d_model,
+    and the same trace read four reduce-scatters of (2, 48, 192) and
+    all-to-alls of (2, 48, 96) and (4, 48, 96), the MLP's hidden."""
+    out = _child(C6)
+    assert out["heads"] % 2 == 0           # the heads split over "model"
+    assert out["log"], out
+    hidden = [c for c in out["log"] if 48 in c[1] and
+              (192 in c[1] or 96 in c[1])]
+    assert not hidden, hidden
+
+
+TAIL = r"""
+import dataclasses, json
+from repro_torch.configs import get_config, SHAPES
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+
+cfg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=5)
+with D.fake_group(256):
+    full, tr = D.trace_step(*D._build(cfg, SHAPES["train_4k"],
+                                      make_production_mesh(), "train"))
+print(json.dumps({"largest": tr.live_at_peak(1)[0], "flops": full["flops"],
+                  "vocab": cfg.vocab}))
+"""
+
+
+def test_tail_blocks_keep_the_unembedding_on_local_tokens():
+    """recurrentgemma-2b at full width cut to 5 layers, one (rec, rec,
+    attn) group and the two-layer tail its 26 layers leave, traced for
+    rank 0 of train_4k's (16, 16) mesh: no storage at the peak is as
+    large as the global batch's logits over one vocab shard (256 x 4096
+    x 16000 bf16).  A tail block's output is a partial sum over
+    "model"; pinned only after its mixer (ROADMAP C.6) and not after
+    the block, it led DTensor to move the residual's d_model over "data"
+    and compute all 256 x 4096 tokens' logits on every rank (a 537 GB
+    storage, 1.29e14 FLOPs where the pinned tail reads 4.49e13)."""
+    out = _child(TAIL)
+    shard_logits = 256 * 4096 * (out["vocab"] // 16) * 2
+    assert out["largest"]["bytes"] < shard_logits, out
+    assert out["flops"] < 6e13, out
+
+
 def _fn(tree, name):
     return next(n for n in ast.walk(tree)
                 if isinstance(n, ast.FunctionDef) and n.name == name)
