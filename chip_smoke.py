@@ -176,9 +176,12 @@ and it stops at the first failing phase with a non-zero exit:
    on DTensor state and batch placed by ``launch.specs.train_specs``,
    and one plain step from the same weights (seed 0) and batch (8 x 128
    tokens), each counted, for full-width qwen2-0.5b (24 layers, bf16,
-   ``remat="block"``), recurrentgemma-2b cut to ``CUT_LAYERS`` and
+   ``remat="block"``), recurrentgemma-2b cut to ``CUT_LAYERS``,
    rwkv6-1.6b cut to ``SHARD_RWKV_LAYERS`` (its time mix on the local
-   heads' route, ``models/rwkv.py``) with their widths: |dloss| < 2e-4
+   heads' route, ``models/rwkv.py``) and qwen2-moe-a2.7b cut to
+   ``SHARD_MOE_LAYERS`` (its global MoE on each rank's tokens and expert
+   shard, ``models/moe.py``, ``remat="block"``) with their widths:
+   |dloss| < 2e-4
    and the largest |dparam| over every leaf < 5e-3 (the reference's
    bars, ``tests/test_distributed.py``), the
    sharded step's flash and rg_lru launches the plain step's (48 flash
@@ -2156,6 +2159,9 @@ SHARD_LAUNCHES = {}      # launches of the counted sharded steps
 # rwkv6-1.6b's depth in the shard phase, at its full widths: its time
 # mix runs on the local heads' route (``models/rwkv.py``)
 SHARD_RWKV_LAYERS = 6
+# qwen2-moe-a2.7b's: its global MoE runs on each rank's tokens and
+# expert shard (``models/moe.py``, ``_on_token_shards``)
+SHARD_MOE_LAYERS = 2
 
 
 def _timed(fn):
@@ -2319,7 +2325,8 @@ def shard_phases(ckpt_dir: str) -> None:
     """The sharded train step on a one-rank NCCL group (a ``FileStore``
     under ``build/``, no network) and ``make_dev_mesh(1, 1)``:
     qwen2-0.5b at full width (24 layers), recurrentgemma-2b at
-    ``CUT_LAYERS`` depth and rwkv6-1.6b at ``SHARD_RWKV_LAYERS`` with
+    ``CUT_LAYERS`` depth, rwkv6-1.6b at ``SHARD_RWKV_LAYERS`` and
+    qwen2-moe-a2.7b at ``SHARD_MOE_LAYERS`` with
     their widths, the prefetcher's and the
     restore's placements (the restore from ``ckpt_dir``, the training
     phase's checkpoints), then the C.4 kernel-route check."""
@@ -2350,6 +2357,10 @@ def shard_phases(ckpt_dir: str) -> None:
         shard_step_check("cut", dataclasses.replace(
             get_config("rwkv6-1.6b"), n_layers=SHARD_RWKV_LAYERS), mesh,
             opt)
+        free_card()
+        shard_step_check("cut", dataclasses.replace(
+            get_config("qwen2-moe-a2.7b"), n_layers=SHARD_MOE_LAYERS),
+            mesh, opt)
         free_card()
         c4_kernel_check(8, 128, 14, 2, 64)
         c4_kernel_check(8, 128, 10, 1, 256, window=2048)

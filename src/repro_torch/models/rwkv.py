@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef, group_norm_heads
-from repro_torch.sharding import is_dtensor
+from repro_torch.sharding import constrain, is_dtensor
 
 
 def rwkv_defs(cfg: ModelConfig) -> dict:
@@ -287,13 +287,24 @@ def _on_local_heads(cfg: ModelConfig, p: dict, x, *, mode: str,
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                     mode: str, state: Optional[dict]):
+                     mode: str, state: Optional[dict], ctx=None):
     """Returns (out, cm_x): the last token is the channel-mix state
-    (None in train)."""
+    (None in train).
+
+    ``v`` is pinned to ("batch", None, None) where the reference pins
+    nothing: DTensor propagates placements op by op, so the product
+    ``r * v`` with ``r`` split on d_model over "model" (``cr``'s
+    ``rec_width``) left ``v``'s gradient split on d_model too, and the
+    backward contracted it with ``cv`` into a partial sum over the
+    whole d_ff, reduce-scattered a layer (ROADMAP C.7).  Pinned, ``v``
+    is all-reduced once in the forward, its gradient all-gathered, and
+    ``k``'s gradient stays on the rank's d_ff shard.  No-op on one
+    device."""
     sx = _shifted(x, mode, None if state is None else state["cm_x"]) - x
     xk = x + sx * p["cmu_k"]
     xr = x + sx * p["cmu_r"]
     k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, p["ck"])))
-    v = torch.einsum("btf,fd->btd", k, p["cv"])
+    v = constrain(torch.einsum("btf,fd->btd", k, p["cv"]),
+                  ("batch", None, None), ctx)
     r = torch.sigmoid(torch.einsum("btd,de->bte", xr, p["cr"]))
     return r * v, (None if mode == "train" else x[:, -1])

@@ -109,7 +109,7 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, mode: str, pos,
         x = constrain(x + o, ("batch", None, None), ctx)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         o, cm_x = rwkv_mod.rwkv_channel_mix(cfg, p["mix"], h, mode=mode,
-                                            state=cache)
+                                            state=cache, ctx=ctx)
         return x + o, (None if mode == "train" else
                        {"mix": tm, "cm_x": cm_x}), aux
     if kind == "attn":

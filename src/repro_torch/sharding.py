@@ -77,10 +77,18 @@ at these places, and nowhere else:
 - a decode step writes its new K/V row into each rank's shard of a
   cache sharded over batch and positions (``layers._write_rows``):
   DTensor has no strategy for that indexed write;
-- the global MoE (its sort and scatter over all tokens) runs on whole
-  values on every rank (``on_whole_values``, ``moe.moe_apply``), as
-  does the grouped MoE's ``searchsorted``, which has no sharding
-  strategy;
+- the global MoE (its sort and scatter over all tokens) runs on each
+  rank's token shard and expert shard through ``local_map``
+  (``models/moe.py``, ``_on_token_shards``): each expert keeps its
+  first C assignments over all tokens from an all-gather of the token
+  shards' counts, and the output is a partial sum over the experts'
+  mesh dims that the block's pin reduces; the shared expert's gate is
+  pinned, since the sigmoid's backward has no strategy for the partial
+  sum its gradient is (``moe._shared_expert``);
+- the rwkv channel mix pins its ``v`` (``models/rwkv.py``), or its
+  backward reduce-scatters a whole-d_ff partial sum (ROADMAP C.7);
+- the grouped MoE's ``searchsorted``, which has no sharding strategy,
+  runs on whole values on every rank (``on_whole_values``);
 - a gradient comes back with the placements autograd gave it (a
   partial sum, a shard of another dim) and is redistributed to its
   param's (``as_placed`` in ``lm.value_and_grad``), so the update is

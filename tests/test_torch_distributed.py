@@ -177,7 +177,9 @@ def test_sharded_families_match_their_plain_step(tmp_path):
     remat (rg_lru on the width's shards, flash with its heads
     replicated since its one KV head cannot split), RWKV's time mix on
     each rank's local heads (4 heads of 16, 2 a rank), the global MoE
-    on whole values, the grouped MoE with its constraints.  Besides
+    on each rank's tokens and local experts (``moe._on_token_shards``;
+    its 4 experts split over "model"), the grouped MoE with its
+    constraints.  Besides
     the step's loss and params, the step's grad norm is within 1e-4
     relative, and every leaf's gradient (``lm.value_and_grad``, in
     float64) within 2e-5 of its largest entry: the first AdamW step
@@ -191,6 +193,115 @@ def test_sharded_families_match_their_plain_step(tmp_path):
         assert math.isclose(*d["grad_norm"], rel_tol=1e-4), (name, d)
         for i, (err, scale) in enumerate(d["dgrad"]):
             assert err <= 2e-5 * scale, (name, i, err, scale)
+
+
+MOE_CHILD = r"""
+import dataclasses
+from repro_torch.configs import ShapeCfg, get_config, reduce_for_smoke
+from repro_torch.interop import tree_leaves
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.specs import train_specs
+from repro_torch.launch.train import build_state
+from repro_torch.models import lm, moe as M, transformer as T
+from repro_torch.optim.adamw import AdamW
+from repro_torch.sharding import TRAIN_RULES, ShardCtx, distribute_tree, full
+
+mesh = make_dev_mesh(2, 2, device_type="cpu")
+model0 = mesh.get_coordinate()[1] == 0
+cfg = reduce_for_smoke(get_config("qwen2-moe-a2.7b"))
+E = int(os.environ["EXPERTS"])
+cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+    cfg.moe, n_experts=E, capacity_factor=1.0))
+B, S = 8, 32
+C = M._capacity(cfg, B * S)
+# each layer's assignments an expert in the plain step, of which it
+# keeps the first C (the reference's rule, from its routing), and the
+# kept ones of the sharded step, read from its own ranks, on the ranks
+# of "model" coordinate 0 (the others repeat them), summed over "data"
+kept = {"plain": [], "sharded": [], "shard_counts": []}
+plain_global, ranks = M.moe_apply_global, M._global_ranks
+
+
+def spy_plain(cfg, p, x, ctx=None):
+    xf = x.reshape(-1, x.shape[-1])
+    top_e = torch.topk(torch.softmax((xf @ p["router"]).float(), -1),
+                       cfg.moe.top_k, dim=-1)[1].reshape(-1)
+    kept["plain"].append(M._counts(top_e, E).tolist())
+    return plain_global(cfg, p, x, ctx)
+
+
+def spy_ranks(flat_e, row, before, n):
+    got = ranks(flat_e, row, before, n)
+    kept["sharded"].append(M._counts(flat_e[got < C], E))
+    kept["shard_counts"].append(M._counts(flat_e, E))
+    return got
+
+
+M.moe_apply_global, M._global_ranks = spy_plain, spy_ranks
+opt = AdamW(lr=1e-3, weight_decay=0.0)
+g = torch.Generator().manual_seed(5)
+batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g,
+                          dtype=torch.int32) for k in ("tokens", "labels")}
+state = build_state(cfg, opt, 0, "cpu")
+cell, _ = train_specs(cfg, ShapeCfg("t", S, B, "train"), mesh, opt)
+ctx = ShardCtx(mesh, TRAIN_RULES)
+state_d = distribute_tree(state, cell.shardings[0])
+batch_d = distribute_tree(batch, cell.shardings[1])
+new, m = lm.make_train_step(cfg, opt, ctx=ctx)(state_d, batch_d)
+plain, pm = lm.make_train_step(cfg, opt)(state, batch)
+plain_counts = list(kept["plain"])
+sharded = torch.stack(kept["sharded"]) * model0
+dist.all_reduce(sharded)
+counts = [c.tolist() for c in kept["shard_counts"]] if model0 else []
+every = [None] * WORLD
+dist.all_gather_object(every, counts)
+cfg64 = dataclasses.replace(cfg, dtype="float64")
+params = T.tree_init(T.param_defs(cfg64), cfg64, 0, "cpu")
+grads = lm.value_and_grad(
+    cfg64, distribute_tree(params, cell.shardings[0]["params"]),
+    batch_d, ctx=ctx)[1]
+want = lm.value_and_grad(cfg64, params, batch)[1]
+done({"dloss": abs(float(m["loss"]) - float(pm["loss"])),
+      "dparam": max(float((full(a) - b).abs().max()) for a, b in zip(
+          tree_leaves(new["params"]), tree_leaves(plain["params"]))),
+      "grad_norm": [float(m["grad_norm"]), float(pm["grad_norm"])],
+      "dgrad": [[float((full(a) - b).abs().max()), float(b.abs().max())]
+                for a, b in zip(tree_leaves(grads), tree_leaves(want))],
+      "kept": sharded.tolist(), "plain_counts": plain_counts, "C": C,
+      "shard_counts": [c for c in every if c],
+      "placement": [str(p) for p in state_d["params"]["groups"]["b0"][
+          "ffn"]["we1"].placements]})
+"""
+
+
+@pytest.mark.parametrize("experts,placement", [
+    (4, ["S(2)", "S(1)"]), (3, ["S(2)", "S(3)"])], ids=["experts", "d_ff"])
+def test_global_moe_on_token_shards_keeps_the_plain_steps_assignments(
+        tmp_path, experts, placement):
+    """qwen2-moe-a2.7b at smoke size, float32, capacity factor 1, on
+    a (2, 2) gloo mesh: the global MoE on each rank's 4 x 32 tokens and
+    its shard of the experts (``moe._on_token_shards``), with 4 experts
+    split over "model" or 3, whose d_expert 32 splits instead.  Its
+    train step against the plain step at the families test's bars
+    (dloss, dparam, grad norm rel 1e-4, each leaf's float64 gradient
+    within 2e-5 of its largest entry), and each layer's kept
+    assignments an expert equal to the plain step's first C: the two
+    data shards route unevenly, and some experts take more than C and
+    drop while others take fewer, so a shard that took its own share of
+    C, or ranked its assignments from zero, would keep others."""
+    out = run_ranks(MOE_CHILD, 4, tmp_path, env={"EXPERTS": str(experts)})
+    assert out["placement"] == placement, out["placement"]
+    assert out["dloss"] < DLOSS and out["dparam"] < DPARAM, out
+    assert math.isclose(*out["grad_norm"], rel_tol=1e-4), out
+    for i, (err, scale) in enumerate(out["dgrad"]):
+        assert err <= 2e-5 * scale, (i, err, scale)
+    C, counts = out["C"], out["plain_counts"]
+    assert len(out["kept"]) == len(counts) == 2, out  # the 2 layers
+    assert out["kept"] == [[min(c, C) for c in row] for row in counts], out
+    flat = [c for row in counts for c in row]
+    assert max(flat) > C > min(flat), (C, counts)  # drops, and room
+    first, second = out["shard_counts"]           # the data shards
+    assert first != second, out                   # routed unevenly
 
 
 RWKV_SERVE_CHILD = r"""
@@ -353,6 +464,83 @@ def test_time_mix_on_local_heads_costs_a_ranks_share():
     activation = [2, 32]            # (local batch, seq)
     assert any(s[:2] == activation for s in whole["gathers"]), whole
     assert not any(s[:2] == activation for s in local["gathers"]), local
+
+
+MOE_COST_CHILD = r"""
+import dataclasses, json
+import torch
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.hlo import Trace
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.models import moe as M, transformer as T
+from repro_torch.sharding import (TRAIN_RULES, ShardCtx, constrain,
+                                  on_whole_values, scope, tree_shardings)
+
+# 3 experts: d_expert splits over "model", as 60 and 8 experts on 16 do
+cfg = reduce_for_smoke(get_config("qwen2-moe-a2.7b"))
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=3))
+B, S, Dm = 8, 32, cfg.d_model
+out = {}
+with D.fake_group(8):
+    mesh = make_dev_mesh(4, 2)
+    ctx = ShardCtx(mesh, TRAIN_RULES)
+    defs = M.moe_defs(cfg)
+    ab = T.tree_abstract(defs, cfg)
+    p = D.on_meta(ab, tree_shardings(ab, T.tree_logical(defs), mesh,
+                                     TRAIN_RULES))
+    h = D.on_meta({"h": torch.empty(B, S, Dm, dtype=torch.bfloat16,
+                                    device="meta")},
+                  {"h": (mesh, ctx.placements((B, S, Dm),
+                                              ("batch", None, None)))})["h"]
+    leaves = [h] + [p[k] for k in sorted(p)]
+    for t in leaves:
+        t.requires_grad_(True)
+    routes = {
+        "whole": lambda: on_whole_values(
+            lambda pm, x: M.moe_apply_global(cfg, pm, x), p, h),
+        "local": lambda: M.moe_apply(cfg, p, h, ctx)}
+    for name, route in routes.items():
+        tr = Trace()
+        tr.arguments(p, h)
+        with tr, scope(ctx):
+            o, aux = route()
+            y = constrain(h + o, ("batch", None, None), ctx)
+            torch.autograd.grad(y.float().sum() + aux, leaves,
+                                allow_unused=True)
+        out[name] = {"flops": tr.flops, "by_op": dict(tr.flops_by_op),
+                     "gathers": [s for c, s in tr.collective_shapes
+                                 if c == "all-gather"]}
+out["router"] = 3 * 2 * (B // 4) * S * Dm * cfg.moe.n_experts
+print(json.dumps(out))
+"""
+
+
+def test_global_moe_on_token_shards_costs_a_ranks_share():
+    """The global MoE and its backward, traced for rank 0 of a fake (4,
+    2) group under ``TRAIN_RULES`` (qwen2-moe-a2.7b at smoke size with 3
+    experts, so that d_expert splits over "model" as the production
+    MoEs' does; 8 x 32 tokens), on whole values (``on_whole_values``,
+    the route before ``moe._on_token_shards``) and on the rank's tokens
+    and d_expert slice: the local route's FLOPs are at most the whole
+    route's over the 8 ranks, plus the router's three products on the
+    rank's tokens, which every rank of "model" repeats; it all-gathers
+    no (batch, seq)-sized activation, where the whole route gathers the
+    input's batch over "data"; and the segmented expert products are
+    counted, forward and backward."""
+    res = subprocess.run([sys.executable, "-c", MOE_COST_CHILD],
+                         env=dict(os.environ, PYTHONPATH=SRC,
+                                  OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    whole, local = out["whole"], out["local"]
+    assert 0 < local["flops"] <= whole["flops"] / 8 + out["router"], out
+    activation = [2, 32]            # (local batch, seq)
+    assert any(s[:2] == activation for s in whole["gathers"]), whole
+    assert not any(s[:2] == activation for s in local["gathers"]), local
+    assert local["by_op"].get("repro_torch.segment_mm", 0) > 0, local
+    assert local["by_op"].get("repro_torch.segment_mm_tn", 0) > 0, local
 
 
 ELASTIC_SAVE = r"""

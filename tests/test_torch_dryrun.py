@@ -116,6 +116,42 @@ def test_heads_split_block_moves_no_mlp_hidden():
     assert not hidden, hidden
 
 
+C7 = r"""
+import dataclasses, json
+from repro_torch.configs import get_config, reduce_for_smoke, SHAPES
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.hlo import Trace
+from repro_torch.launch.mesh import make_dev_mesh
+
+# d_ff 192: neither it nor its shard over "model" (96) is d_model (64)
+cfg = dataclasses.replace(reduce_for_smoke(get_config("rwkv6-1.6b")),
+                          d_ff=192)
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=48, global_batch=16)
+with D.fake_group(8):
+    step, args = D._build(cfg, shape, make_dev_mesh(4, 2), "train")
+    tr = Trace()
+    tr.arguments(args)
+    with tr:
+        step(*args)
+print(json.dumps({"log": tr.collective_shapes}))
+"""
+
+
+def test_channel_mix_gradient_stays_on_its_d_ff_shard():
+    """ROADMAP C.7: a sharded train step of rwkv6-1.6b at smoke size (d
+    model 64, d_ff 192) on a fake (4, 2) group, 16 x 48 tokens: no
+    collective's operand is a (batch, seq, d_ff) activation, whole or
+    sharded.  The channel mix pins ``v`` to ("batch", None, None); the
+    parent's unpinned ``r * v`` left ``v``'s gradient split on d_model,
+    and the same trace read two reduce-scatters of (8, 48, 96), the
+    gradient of ``k`` over twice the rank's batch on its d_ff shard."""
+    out = _child(C7)
+    assert out["log"], out
+    hidden = [c for c in out["log"] if 48 in c[1] and
+              (192 in c[1] or 96 in c[1])]
+    assert not hidden, hidden
+
+
 TAIL = r"""
 import dataclasses, json
 from repro_torch.configs import get_config, SHAPES
